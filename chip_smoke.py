@@ -5,35 +5,72 @@ Smoke run of the PyTorch/CUDA port on one CUDA card:
 2. build: the integrator kernel (``magicsoup_tpu_torch/csrc/integrate.cu``,
    nvcc) and the genome engine (g++) from the checkout's sources, started
    together;
-3. kernel check on seeded inputs: the kernel against its plain PyTorch
+3. K1, the kernel's solo grid, on seeded inputs: against its plain PyTorch
    version at the workload's shapes (q = 10240 live rows, s = 28 signals,
    the world's real protein count p) on inputs drawn as
    ``performance/pallas_bisect.py`` draws them, plus the edge cases, under
    the fast contract (finite and >= 0; 99th-percentile relative error
    < 1e-4; maximum < 0.15); then the kernel's median time over 25
    launches (CUDA events), the plain version's, and the byte bound;
-4. kernel check on the world's state: the same comparison on the signals
-   and parameters that the first workload step hands the integrator, under
+4. K1 on the world's state: the same comparison on the signals and
+   parameters that the first workload step hands the integrator, under
    the real-state contract (finite and >= 0; at least 85% of cells within
    1e-4 relative, 98% within 0.01 of their largest value, all within
-   0.25): the negative guard drains a signal to 0 up to rounding, and
-   the equilibrium correction's quotient takes another branch at 0 than
-   at 5e-7, so which cells do follows summation order;
-5. workload: ``World(chemistry=Wood-Ljungdahl, map_size=128, seed=42)`` on
-   the card, 10,000 random 500-bp genomes, 3 warm-up steps, 120 timed
-   steps of the canonical workload step
+   0.25, or, for a cell beyond that, within 0.25 of the det integrator
+   run on its tile on the CPU): the negative guard drains a signal to 0
+   up to rounding, and the equilibrium correction's quotient takes
+   another branch at 0 than at 5e-7, so which cells do follows
+   summation order (ROADMAP C);
+5. classic workload: ``World(chemistry=Wood-Ljungdahl, map_size=128,
+   seed=42)`` on the card, 10,000 random 500-bp genomes, 3 warm-up steps,
+   one timed block of 40 steps of the canonical workload step
    (``magicsoup_tpu_torch.workload.sim_step``) with no barrier but one at
-   the end of each block of 40 (steps/s), then 10 steps with each phase
-   synchronized and timed (seconds per phase); the kernel's launch count
-   is set to 0 just before and must show one launch per step; the state
-   must stay finite and >= 0.
+   its end (steps/s), then 10 steps with each phase synchronized and
+   timed (seconds per phase); K1's launch count is set to 0 just before
+   and must show one launch per step; the state must stay finite and
+   >= 0;
+6. the pipelined stepper at full width, K = 1 and K = 4: a fresh world as
+   in 5, ``PipelinedStepper(world, mol_name="ATP", kill_below=1.0,
+   divide_above=5.0, divide_cost=4.0, target_cells=10000,
+   genome_size=500, lag=2, megastep=K)``, 3 warm-up dispatches and
+   ``drain()``; one dispatch with the fetcher idle under
+   ``torch.cuda.set_sync_debug_mode("error")`` (enqueueing must not
+   synchronize the host); then a timed window of 120 simulated steps
+   ending in ``drain()`` (steps/s in simulated steps), with the kernel's
+   launch count set to 0 just before and one launch per simulated step
+   after; a profiled window of 10 steps; ``flush()``, and the world's
+   state must be finite and >= 0;
+7. the fleet: ``FleetScheduler(block=4)`` with 4 such worlds (seeds
+   42-45), the same stepper arguments at K = 1, one warm-up fleet step,
+   then 40 timed fleet steps ending in ``drain()``; exactly one launch of
+   the kernel's batched grid (K2) per fleet step for the group; a
+   profiled window; after ``flush()`` every world's state must be finite
+   and >= 0;
+   over 6 and 7, the invariant and health flags of every record the host
+   replays are decoded and counted per window; any flag other than
+   ``dead_param_residue`` (which the reference trips too, ROADMAP C)
+   fails the run;
+8. K2 on seeded inputs, drawn as in 3: B = 4 worlds, each the prefix of
+   a stack of the fleet's capacity (16384 rows, the world stride), at
+   q = 10240 and at the fleet's own q = capacity, against its plain
+   version under the fast contract; each world's slice of the launch
+   must be bit-equal to its own B = 1 launch; median time over 25
+   launches, the plain version's, and the byte bound;
+9. K2 on real state: copies of the integrator's inputs at the first step
+   of the stepper's K = 1 timed window (B = 1, its live-row prefix) and
+   of the fleet's (B = 4, q = capacity), against the plain version under
+   the real-state contract of 4 on the rows with any protein (the rest
+   must equal the plain version exactly); the kernel's and the plain
+   version's times on them.
 
-It prints a ``{"workload": ...}`` line, a ``{"kernels": [...]}`` line, the
-card's name and power limit, and as its last line
-``{"ok": true, "device": {...}}``.  Any failure raises, and the run exits
-non-zero without that last line.  It needs one card.
+It prints a ``{"workload": ...}`` line, a ``{"stepper": ...}`` line, a
+``{"fleet": ...}`` line, the flags per window, the seeded and real-state
+K2 lines, a ``{"kernels": [...]}`` line, the card's name and
+power limit, and as its last line ``{"ok": true, "device": {...}}``.  Any
+failure raises, and the run exits non-zero without that last line.  It
+needs one card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--dump DIR]
 """
 import json
 import random
@@ -56,11 +93,27 @@ MAP_SIZE = 128
 GENOME_SIZE = 500
 SEED = 42
 WARMUP_STEPS = 3
-TIMED_BLOCKS = 3
+TIMED_BLOCKS = 1
 BLOCK_STEPS = 40
 PHASE_STEPS = 10
 KERNEL_REPS = 25
 PLAIN_REPS = 5
+K2_WORLDS = 4
+STEPPER_STEPS = 120
+STEPPER_WARMUP = 3
+FLEET_WORLDS = 4
+FLEET_STEPS = 40
+#: where the real-state checks save their worst tiles (``--dump DIR``)
+DUMP_DIR = None
+STEPPER_KW = dict(
+    mol_name="ATP",
+    kill_below=1.0,
+    divide_above=5.0,
+    divide_cost=4.0,
+    target_cells=N_CELLS,
+    genome_size=GENOME_SIZE,
+    lag=2,
+)
 
 
 def _card_line() -> str:
@@ -155,11 +208,13 @@ def _kernel_check(torch, q: int, p: int, s: int) -> dict:
     import numpy as np
 
     from magicsoup_tpu_torch.ops import cuda_integrate as ci
+    from magicsoup_tpu_torch.ops.integrate import CellParams
 
     X, params = _bisect_inputs(torch, q, p, s, seed=0)
-    out = ci.integrate_signals_cuda(X, params)
+    X, params = X[None], CellParams(*(t[None] for t in params))
+    out = ci.integrate_signals_cuda(X, params)[0]
     torch.cuda.synchronize()
-    ref = ci.integrate_signals_tiled(X, params, ci.TILE_C)
+    ref = ci.integrate_signals_tiled(X, params, ci.TILE_C)[0]
     out_np, ref_np = out.cpu().numpy(), ref.cpu().numpy()
     if not (np.isfinite(out_np).all() and (out_np >= 0).all()):
         raise AssertionError("kernel output is not finite and >= 0")
@@ -167,22 +222,13 @@ def _kernel_check(torch, q: int, p: int, s: int) -> dict:
     q99, rel_max = float(np.quantile(rel, 0.99)), float(rel.max())
     if not (q99 < 1e-4 and rel_max < 0.15):
         raise AssertionError(f"kernel vs plain: q99 {q99}, max {rel_max}")
-    if not np.array_equal(out_np[8:16], X[8:16].cpu().numpy()):
+    if not np.array_equal(out_np[8:16], X[0, 8:16].cpu().numpy()):
         raise AssertionError("dead rows changed")
 
     ms = _median_ms(torch, lambda: ci.integrate_signals_cuda(X, params), KERNEL_REPS)
     plain_ms = _median_ms(
         torch, lambda: ci.integrate_signals_tiled(X, params, ci.TILE_C), PLAIN_REPS
     )
-    # least bytes: read X and the nine parameter tensors once, write X1
-    n_bytes = q * (16 * p + 12 * p * s + 8 * s)
-    # least operations: per trim pass and (cell, protein, signal) the
-    # always-run part of the body (the two log-space products, the
-    # regulation sum, the negative guard's sum and min, the first signal
-    # update) is >= 13 f32 operations; the correction steps come on top
-    n_ops = 3 * 13 * q * p * s
-    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = n_ops / F32_FLOP_PER_S * 1e3
     return {
         "name": "integrate_signals",
         "route": "cuda",
@@ -194,57 +240,129 @@ def _kernel_check(torch, q: int, p: int, s: int) -> dict:
         "seeded_q99_rel_err": q99,
         "ms": ms,
         "plain_ms": plain_ms,
-        "bound_ms": max(bytes_ms, ops_ms),
-        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        **_bound(q, p, s),
         "library_ms": None,
-        "bytes": n_bytes,
     }
 
 
-def _world_kernel_check(torch, world) -> dict:
-    """The kernel against its plain version on the signals and parameters
-    that the world's next workload step hands the integrator."""
+def _dump_worst(X, params, out, ref, cells, norm, label: str, n: int = 4) -> None:
+    """Save the tiles of the ``n`` cells that differ most from the plain
+    version (inputs, kernel and plain outputs) to ``DUMP_DIR``, one
+    ``.npz`` per check, for analysis off the card."""
+    import numpy as np
+
+    from magicsoup_tpu_torch.ops.cuda_integrate import TILE_C
+
+    arrays = {}
+    worst = np.argsort(-norm)[:n]
+    tiles = sorted({(int(cells[i, 0]), int(cells[i, 1]) // TILE_C) for i in worst})
+    for j, (w, t) in enumerate(tiles):
+        rows = slice(t * TILE_C, (t + 1) * TILE_C)
+        arrays[f"t{j}_where"] = np.array([w, t * TILE_C])
+        arrays[f"t{j}_X"] = X[w, rows].cpu().numpy()
+        arrays[f"t{j}_out"] = out[w, rows].cpu().numpy()
+        arrays[f"t{j}_ref"] = ref[w, rows].cpu().numpy()
+        for name, v in params._asdict().items():
+            arrays[f"t{j}_{name}"] = v[w, rows].cpu().numpy()
+    arrays["worst_cells"] = cells[worst]
+    arrays["worst_norm"] = norm[worst]
+    DUMP_DIR.mkdir(parents=True, exist_ok=True)
+    slug = "".join(ch if ch.isalnum() else "_" for ch in label)
+    np.savez(DUMP_DIR / f"{slug}.npz", **arrays)
+
+
+def _real_state_check(torch, X, params, active, label: str) -> dict:
+    """The kernel against its plain version on state that a main path
+    handed it: ``X`` (B, q, s) and its parameters, ``active`` (B, q) the
+    rows under the per-cell real-state contract of ROADMAP C: finite and
+    >= 0; at least 85% of them within 1e-4 relative, 98% within 0.01 of
+    their largest value; all within 0.25.  A cell further than that from
+    the plain version sits on a branch point of the equilibrium
+    correction, where summation order picks the branch: it must land
+    within 0.25 of the branch that the det integrator takes on the CPU on
+    its tile of 8 cells (the kernel's early-stop unit), where the det
+    integrator is bit-equal to the JAX package's.  The other rows must
+    equal the plain version exactly."""
     import numpy as np
 
     from magicsoup_tpu_torch.ops import cuda_integrate as ci
+    from magicsoup_tpu_torch.ops.integrate import CellParams, integrate_signals
 
-    X, params = world.integrator_inputs()
     out = ci.integrate_signals_cuda(X, params)
     ref = ci.integrate_signals_tiled(X, params, ci.TILE_C)
-    n = world.n_cells  # rows past n are dead and inert
-    out_np, ref_np = out[:n].cpu().numpy(), ref[:n].cpu().numpy()
+    if not torch.equal(out[~active], ref[~active]):
+        raise AssertionError(f"{label}: inactive rows differ from the plain version")
+    cells = active.nonzero().cpu().numpy()
+    out_np, ref_np = out[active].cpu().numpy(), ref[active].cpu().numpy()
     if not (np.isfinite(out_np).all() and (out_np >= 0).all()):
-        raise AssertionError("kernel output on the world's state is not finite and >= 0")
+        raise AssertionError(f"{label}: kernel output is not finite and >= 0")
     rel = np.abs(out_np - ref_np) / (np.abs(ref_np) + 1e-6)
     within = float((rel.max(axis=1) < 1e-4).mean())
     scale = np.maximum(np.abs(ref_np).max(axis=1), 1e-6)
     norm = np.abs(out_np - ref_np).max(axis=1) / scale
     within_1e2 = float((norm < 0.01).mean())
-    if not (within >= 0.85 and within_1e2 >= 0.98 and norm.max() < 0.25):
+    far = np.nonzero(norm >= 0.25)[0]
+    det_err = []
+    for i in far:
+        w, row = (int(v) for v in cells[i])
+        rows = slice(row - row % ci.TILE_C, row - row % ci.TILE_C + ci.TILE_C)
+        det = integrate_signals(
+            X[w, rows].cpu(), CellParams(*(t[w, rows].cpu() for t in params)), det=True
+        )[row % ci.TILE_C].numpy()
+        det_err.append(float(np.abs(out_np[i] - det).max() / max(np.abs(det).max(), 1e-6)))
+    if DUMP_DIR is not None:
+        _dump_worst(X, params, out, ref, cells, norm, label)
+    if not (within >= 0.85 and within_1e2 >= 0.98 and all(e < 0.25 for e in det_err)):
         raise AssertionError(
-            f"kernel vs plain on the world: {within} of cells within 1e-4,"
-            f" {within_1e2} within 0.01 of their largest value, worst {norm.max()}"
+            f"{label}: {within} of cells within 1e-4,"
+            f" {within_1e2} within 0.01 of their largest value; the cells"
+            f" beyond 0.25 of the plain version are {det_err} from the det one"
         )
-    if not torch.equal(out[n:], X[n:]):
-        raise AssertionError("dead rows changed")
+    B, q, s = X.shape
     return {
-        "world_shape": {"q": X.shape[0], "n_cells": n, "p": params.Ke.shape[1]},
-        "world_max_abs_err": float(np.abs(out_np - ref_np).max()),
-        "world_cells_within_1e-4": within,
-        "world_cells_within_0.01": within_1e2,
-        "world_max_cell_err": float(norm.max()),
-        "world_q99_rel_err": float(np.quantile(rel, 0.99)),
+        "shape": {"B": B, "q": q, "p": params.Ke.shape[-1], "s": s,
+                  "world_stride": params.Ke.stride(0) // params.Ke[0, 0].numel()},
+        "active_rows": int(active.sum()),
+        "max_abs_err": float(np.abs(out_np - ref_np).max()),
+        "cells_within_1e-4": within,
+        "cells_within_0.01": within_1e2,
+        "max_cell_err": float(norm.max()),
+        "cells_beyond_0.25": [[int(v) for v in cells[i]] for i in far],
+        "their_err_vs_det": det_err,
+        "q99_rel_err": float(np.quantile(rel, 0.99)),
     }
 
 
-def _workload(torch):
-    """The world of the main path, with its cells spawned."""
+def _world_kernel_check(torch, world) -> dict:
+    """K1 against its plain version on the signals and parameters that
+    the world's next workload step hands the integrator; its live rows
+    under the real-state contract, the dead rows past them inert."""
+    from magicsoup_tpu_torch.ops.integrate import CellParams
+
+    X, params = world.integrator_inputs()
+    X, params = X[None], CellParams(*(t[None] for t in params))
+    live = torch.arange(X.shape[1], device=X.device)[None] < world.n_cells
+    got = _real_state_check(torch, X, params, live, "K1 on the world's state")
+    return {
+        "world_shape": {"q": X.shape[1], "n_cells": world.n_cells, "p": params.Ke.shape[-1]},
+        "world_max_abs_err": got["max_abs_err"],
+        "world_cells_within_1e-4": got["cells_within_1e-4"],
+        "world_cells_within_0.01": got["cells_within_0.01"],
+        "world_max_cell_err": got["max_cell_err"],
+        "world_cells_beyond_0.25": got["cells_beyond_0.25"],
+        "world_their_err_vs_det": got["their_err_vs_det"],
+        "world_q99_rel_err": got["q99_rel_err"],
+    }
+
+
+def _workload(torch, seed: int = SEED):
+    """A world of the main paths, with its cells spawned."""
     import magicsoup_tpu_torch as mt
     from magicsoup_tpu_torch.examples.wood_ljungdahl import CHEMISTRY
 
-    rng = random.Random(SEED)
+    rng = random.Random(seed)
     t0 = time.perf_counter()
-    world = mt.World(chemistry=CHEMISTRY, map_size=MAP_SIZE, seed=SEED)
+    world = mt.World(chemistry=CHEMISTRY, map_size=MAP_SIZE, seed=seed)
     world.spawn_cells(
         [mt.random_genome(s=GENOME_SIZE, rng=rng) for _ in range(N_CELLS)]
     )
@@ -326,7 +444,376 @@ def _run_steps(torch, world) -> dict:
     }
 
 
+def _check_state(world, label: str) -> None:
+    import numpy as np
+
+    if world.n_cells <= 0:
+        raise AssertionError(f"{label}: no cells left")
+    for name, arr in (
+        ("cell_molecules", world.cell_molecules),
+        ("molecule_map", world.molecule_map.cpu().numpy()),
+    ):
+        if not (np.isfinite(arr).all() and (arr >= 0).all()):
+            raise AssertionError(f"{label}: {name} is not finite and >= 0")
+
+
+def _bound(n_rows: int, p: int, s: int) -> dict:
+    """The least time of one integrator step over ``n_rows`` cells: the
+    larger of the byte time (read X and the nine parameter tensors once,
+    write X1) and the operation time (per trim pass and (cell, protein,
+    signal) the always-run part of the body: the two log-space products,
+    the regulation sum, the negative guard's sum and min, the first
+    signal update, >= 13 f32 operations; the correction steps come on
+    top)."""
+    n_bytes = n_rows * (16 * p + 12 * p * s + 8 * s)
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = 3 * 13 * n_rows * p * s / F32_FLOP_PER_S * 1e3
+    return {
+        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "bytes": n_bytes,
+    }
+
+
+def _k2_stack(torch, rows: int, p: int, s: int):
+    """Seeded inputs of K2_WORLDS worlds of ``rows`` rows each, stacked."""
+    from magicsoup_tpu_torch.ops.integrate import CellParams
+
+    worlds = [_bisect_inputs(torch, rows, p, s, seed=10 + w) for w in range(K2_WORLDS)]
+    X = torch.stack([x for x, _ in worlds])
+    return X, CellParams(*(torch.stack(ts) for ts in zip(*(pp for _, pp in worlds))))
+
+
+def _k2_seeded(torch, X_stack, stack, q: int) -> dict:
+    """K2 on seeded inputs: each world the q-row prefix of a stack (the
+    world stride is the stack's rows), against its plain version under
+    the fast contract; each world of the launch bit-equal to its own
+    B = 1 launch; median times over 25 launches and the plain version's."""
+    import numpy as np
+
+    from magicsoup_tpu_torch.ops import cuda_integrate as ci
+    from magicsoup_tpu_torch.ops.integrate import CellParams
+
+    B, rows, s = X_stack.shape
+    p = stack.Ke.shape[-1]
+    X = X_stack[:, :q].contiguous()
+    params = CellParams(*(t[:, :q] for t in stack))
+    out = ci.integrate_signals_cuda(X, params)
+    torch.cuda.synchronize()
+    ref = ci.integrate_signals_tiled(X, params, ci.TILE_C)
+    out_np, ref_np = out.cpu().numpy(), ref.cpu().numpy()
+    if not (np.isfinite(out_np).all() and (out_np >= 0).all()):
+        raise AssertionError(f"K2 at q {q}: output is not finite and >= 0")
+    rel = np.abs(out_np - ref_np) / (np.abs(ref_np) + 1e-6)
+    q99, rel_max = float(np.quantile(rel, 0.99)), float(rel.max())
+    if not (q99 < 1e-4 and rel_max < 0.15):
+        raise AssertionError(f"K2 at q {q} vs plain: q99 {q99}, max {rel_max}")
+    for w in range(B):
+        solo = ci.integrate_signals_cuda(
+            X[w : w + 1].contiguous(), CellParams(*(t[w : w + 1] for t in params))
+        )
+        if not torch.equal(solo[0], out[w]):
+            raise AssertionError(f"K2 at q {q}: world {w} differs from its B = 1 launch")
+    ms = _median_ms(torch, lambda: ci.integrate_signals_cuda(X, params), KERNEL_REPS)
+    plain_ms = _median_ms(
+        torch, lambda: ci.integrate_signals_tiled(X, params, ci.TILE_C), PLAIN_REPS
+    )
+    return {
+        "shape": {"B": B, "q": q, "world_stride": rows, "p": p, "s": s},
+        "max_abs_err": float(np.abs(out_np - ref_np).max()),
+        "max_rel_err": rel_max,
+        "q99_rel_err": q99,
+        "worlds_bit_equal_to_solo_launch": True,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        **_bound(B * q, p, s),
+    }
+
+
+def _k2_real_state(torch, inputs, label: str) -> dict:
+    """K2 on the inputs a main path handed it (a copy taken in its timed
+    window): the real-state contract on the rows with any protein (any
+    nonzero Vmax), the kernel's median time over 25 launches on them and
+    the plain version's."""
+    from magicsoup_tpu_torch.ops import cuda_integrate as ci
+
+    X, params = inputs
+    active = params.Vmax.ne(0).any(-1)
+    got = _real_state_check(torch, X, params, active, label)
+    got["ms"] = _median_ms(torch, lambda: ci.integrate_signals_cuda(X, params), KERNEL_REPS)
+    got["plain_ms"] = _median_ms(
+        torch, lambda: ci.integrate_signals_tiled(X, params, ci.TILE_C), PLAIN_REPS
+    )
+    got.update(_bound(X.shape[0] * X.shape[1], params.Ke.shape[-1], X.shape[2]))
+    return got
+
+
+class _Taps:
+    """Taps on the stepper's and the fleet's paths, read after a window:
+
+    - a copy of the integrator's inputs at its first call after
+      :meth:`arm` (the copy launches no kernel);
+    - the invariant and health flag names of every tripped record that
+      the host replays, counted per window (``window`` names the phase
+      under way).
+    """
+
+    def __init__(self):
+        self.window = "setup"
+        self.flags: dict[str, dict[str, int]] = {}
+        self.inputs = None
+        self._armed = False
+        self._undo = []
+
+    def arm(self) -> None:
+        self._armed, self.inputs = True, None
+
+    def unexpected(self) -> list:
+        """Flags other than dead_param_residue, which the reference trips
+        as well (ROADMAP C)."""
+        return sorted(
+            {f for counts in self.flags.values() for f in counts}
+            - {"invariant:dead_param_residue"}
+        )
+
+    def _tally(self, kind: str, decoded: dict) -> None:
+        counts = self.flags.setdefault(self.window, {})
+        for name, on in decoded.items():
+            if on:
+                key = f"{kind}:{name}"
+                counts[key] = counts.get(key, 0) + 1
+
+    def __enter__(self):
+        from magicsoup_tpu_torch.check.invariants import decode_invariants
+        from magicsoup_tpu_torch.guard.sentinel import decode_health
+        from magicsoup_tpu_torch.ops import backends
+        from magicsoup_tpu_torch.ops.integrate import CellParams
+        from magicsoup_tpu_torch.stepper import PipelinedStepper
+
+        taps = self
+        integrate = backends.integrate
+        on_invariant = PipelinedStepper.__dict__["_handle_invariant"]
+        on_sentinel = PipelinedStepper.__dict__["_handle_sentinel"]
+
+        def tapped_integrate(name, X, params):
+            if taps._armed and X.ndim == 3:
+                taps._armed = False
+                taps.inputs = (X.clone(), CellParams(*(t.clone() for t in params)))
+            return integrate(name, X, params)
+
+        def tapped_invariant(stepper, out):
+            taps._tally("invariant", decode_invariants(out.invariants))
+            return on_invariant(stepper, out)
+
+        def tapped_sentinel(stepper, out):
+            taps._tally("health", decode_health(out.health))
+            return on_sentinel(stepper, out)
+
+        self._undo = [
+            (backends, "integrate", integrate),
+            (PipelinedStepper, "_handle_invariant", on_invariant),
+            (PipelinedStepper, "_handle_sentinel", on_sentinel),
+        ]
+        backends.integrate = tapped_integrate
+        PipelinedStepper._handle_invariant = tapped_invariant
+        PipelinedStepper._handle_sentinel = tapped_sentinel
+        return self
+
+    def __exit__(self, *exc):
+        for obj, name, orig in self._undo:
+            setattr(obj, name, orig)
+
+
+PROFILE_STEPS = 10
+
+
+def _profile(torch, run, n_steps: int) -> dict:
+    """``run()`` (n_steps simulated steps, ending in a drain) under
+    ``torch.profiler``: wall seconds; the card's kernel time per step and
+    its busy share of the wall time (kernels only: the ``ms:*`` ranges
+    also appear on the device timeline, as spans that include the waits
+    for the host, and are left out); host milliseconds per step in each
+    ``ms:*`` phase range of the step body (inflated by the profiler's own
+    overhead); and the kernels with the most device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels: dict[str, list] = {}
+    phases: dict[str, float] = {}
+    for e in prof.events():
+        on_device = str(e.device_type).endswith("CUDA")
+        us = e.time_range.elapsed_us()
+        if e.name.startswith("ms:"):
+            if not on_device:
+                phases[e.name] = phases.get(e.name, 0.0) + us / 1e3 / n_steps
+        elif on_device:
+            k = kernels.setdefault(e.name[:90], [0.0, 0])
+            k[0] += us
+            k[1] += 1
+    device_us = sum(k[0] for k in kernels.values())
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:8]
+    most = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:5]
+    return {
+        "steps": n_steps,
+        "wall_s": wall,
+        "device_ms_per_step": device_us / 1e3 / n_steps,
+        "device_busy_share": device_us / 1e6 / wall,
+        "kernel_launches_per_step": sum(k[1] for k in kernels.values()) / n_steps,
+        "host_phase_ms_per_step": phases,
+        "top_kernels": [
+            {"name": name, "device_ms_per_step": us / 1e3 / n_steps,
+             "launches_per_step": n / n_steps}
+            for name, (us, n) in top
+        ],
+        "most_launched": [
+            {"name": name, "launches_per_step": n / n_steps} for name, (_, n) in most
+        ],
+    }
+
+
+def _stepper_run(torch, taps: _Taps, k: int, capture: bool) -> dict:
+    """The pipelined stepper at full width, megastep k; with ``capture``,
+    ``taps`` keeps the integrator's inputs of the timed window's first
+    step."""
+    import magicsoup_tpu_torch as mt
+    from magicsoup_tpu_torch.ops import cuda_integrate as ci
+
+    world, spawn_s = _workload(torch)
+    torch.cuda.reset_peak_memory_stats()
+    taps.window = f"stepper K{k} warm-up"
+    st = mt.PipelinedStepper(world, megastep=k, **STEPPER_KW)
+    for _ in range(STEPPER_WARMUP):
+        st.step()
+    st.drain()
+    # one dispatch with the fetcher idle: enqueueing must not synchronize
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        st.step()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    st.drain()
+    torch.cuda.synchronize()
+    stats0 = dict(st.stats)
+    taps.window = f"stepper K{k} timed"
+    if capture:
+        taps.arm()
+    ci.launches = 0
+    t0 = time.perf_counter()
+    for _ in range(STEPPER_STEPS // k):
+        st.step()
+    st.drain()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = ci.launches
+    if launches != STEPPER_STEPS:
+        raise AssertionError(f"stepper K={k}: {launches} K2 launches in {STEPPER_STEPS} steps")
+    window = {key: st.stats[key] - stats0[key] for key in st.stats}
+
+    def _more():
+        for _ in range(PROFILE_STEPS // k):
+            st.step()
+        st.drain()
+
+    taps.window = f"stepper K{k} profiled"
+    prof = _profile(torch, _more, PROFILE_STEPS)
+    taps.window = f"stepper K{k} flush"
+    st.flush()
+    _check_state(world, f"stepper K={k}")
+    return {
+        "megastep": k,
+        "timed_steps": STEPPER_STEPS,
+        "steps_per_s": STEPPER_STEPS / dt,
+        "launches": launches,
+        "window_s": dt,
+        # host seconds per simulated step in the window: enqueueing the
+        # dispatches, blocked on record fetches, and the whole step() calls
+        "dispatch_s_per_step": window["dispatch_ms"] / 1e3 / STEPPER_STEPS,
+        "fetch_wait_s_per_step": window["fetch_ms"] / 1e3 / STEPPER_STEPS,
+        "step_call_s_per_step": window["step_ms"] / 1e3 / STEPPER_STEPS,
+        "sync_free_dispatch": True,
+        "profile": prof,
+        "stats": {key: st.stats[key] for key in st.stats},
+        "n_cells": world.n_cells,
+        "capacity": world._capacity,
+        "spawn_s": spawn_s,
+        "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+    }
+
+
+def _fleet_run(torch, taps: _Taps) -> dict:
+    """Four worlds as one rung group of a FleetScheduler; ``taps`` keeps
+    the integrator's inputs of the timed window's first fleet step."""
+    import magicsoup_tpu_torch as mt
+    from magicsoup_tpu_torch.analysis import runtime
+    from magicsoup_tpu_torch.ops import cuda_integrate as ci
+
+    worlds = [_workload(torch, seed=SEED + i)[0] for i in range(FLEET_WORLDS)]
+    torch.cuda.reset_peak_memory_stats()
+    taps.window = "fleet warm-up"
+    fleet = mt.FleetScheduler(block=FLEET_WORLDS)
+    for w in worlds:
+        fleet.admit(w, megastep=1, **STEPPER_KW)
+    fleet.step()
+    fleet.drain()
+    torch.cuda.synchronize()
+    taps.window = "fleet timed"
+    taps.arm()
+    runtime.reset_counters()
+    ci.launches = 0
+    t0 = time.perf_counter()
+    for _ in range(FLEET_STEPS):
+        fleet.step()
+    fleet.drain()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = ci.launches
+    census = runtime.snapshot()
+    if launches != FLEET_STEPS:
+        raise AssertionError(f"fleet: {launches} K2 launches in {FLEET_STEPS} fleet steps")
+    if census.get("dispatches") != FLEET_STEPS:
+        raise AssertionError(f"fleet: dispatch census {census}")
+
+    def _more():
+        for _ in range(PROFILE_STEPS):
+            fleet.step()
+        fleet.drain()
+
+    taps.window = "fleet profiled"
+    prof = _profile(torch, _more, PROFILE_STEPS)
+    taps.window = "fleet flush"
+    fleet.flush()
+    for i, w in enumerate(worlds):
+        _check_state(w, f"fleet world {i}")
+    return {
+        "worlds": FLEET_WORLDS,
+        "timed_fleet_steps": FLEET_STEPS,
+        "steps_per_s_per_world": FLEET_STEPS / dt,
+        "steps_per_s_aggregate": FLEET_WORLDS * FLEET_STEPS / dt,
+        "launches": launches,
+        "census": census,
+        "profile": prof,
+        "window_s": dt,
+        "n_cells": [w.n_cells for w in worlds],
+        "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+    }
+
+
 def main() -> None:
+    global DUMP_DIR
+    import argparse
+
+    parser = argparse.ArgumentParser(description="Smoke run of the port on one CUDA card.")
+    parser.add_argument(
+        "--dump", metavar="DIR", type=Path,
+        help="save the worst tiles of each real-state kernel check to DIR",
+    )
+    DUMP_DIR = parser.parse_args().dump
     torch = _environment()
     _build()
 
@@ -337,15 +824,67 @@ def main() -> None:
     kernel = _kernel_check(torch, q=10240, p=p, s=s)
     kernel.update(_world_kernel_check(torch, world))
     kernel["max_abs_err"] = max(kernel["seeded_max_abs_err"], kernel["world_max_abs_err"])
+    torch.cuda.reset_peak_memory_stats()
     work = _run_steps(torch, world)
     kernel["launches"] = work["launches"]
     kernel["ok"] = True
     work["spawn_s"] = spawn_s
     work["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+    del world
+    print(json.dumps({"workload": work}))
+
+    with _Taps() as taps:
+        stepper = {}
+        for k in (1, 4):
+            stepper[f"K{k}"] = _stepper_run(torch, taps, k, capture=k == 1)
+            if k == 1:
+                stepper_inputs = taps.inputs
+        print(json.dumps({"stepper": stepper}))
+        fleet = _fleet_run(torch, taps)
+        fleet_inputs = taps.inputs
+        print(json.dumps({"fleet": fleet}))
+    print(json.dumps({"flags_per_window": taps.flags}))
+    if taps.unexpected():
+        raise AssertionError(f"flags other than dead_param_residue tripped: {taps.unexpected()}")
+
+    # K2 on seeded inputs: 4 worlds as prefixes of stacks of the fleet's
+    # capacity, at q 10240 and at the fleet's q = capacity
+    cap = fleet_inputs[0].shape[1]
+    X_stack, stack = _k2_stack(torch, cap, p, s)
+    seeded = {f"q{q}": _k2_seeded(torch, X_stack, stack, q) for q in (10240, cap)}
+    del X_stack, stack
+    print(json.dumps({"k2_seeded": seeded}))
+    real = {
+        "stepper_K1": _k2_real_state(torch, stepper_inputs, "K2 on the stepper's state"),
+        "fleet": _k2_real_state(torch, fleet_inputs, "K2 on the fleet's state"),
+    }
+    print(json.dumps({"k2_real_state": real}))
+    main_shape = seeded[f"q{cap}"]
+    k2 = {
+        "name": "integrate_signals_batched",
+        "route": "cuda",
+        "source": "magicsoup_tpu_torch/csrc/integrate.cu",
+        "replaces": "magicsoup_tpu/ops/pallas_integrate.py:186",
+        # at the fleet's shape (B 4, q = capacity, world stride = capacity)
+        "shape": main_shape["shape"],
+        "launches": fleet["launches"],
+        "stepper_launches": {key: v["launches"] for key, v in stepper.items()},
+        "max_abs_err": max(
+            [v["max_abs_err"] for v in seeded.values()]
+            + [v["max_abs_err"] for v in real.values()]
+        ),
+        "seeded": seeded,
+        "real_state": real,
+        "ms": main_shape["ms"],
+        "plain_ms": main_shape["plain_ms"],
+        "bound_ms": main_shape["bound_ms"],
+        "bound_by": main_shape["bound_by"],
+        "library_ms": None,
+        "ok": True,
+    }
 
     card = _card_line()
-    print(json.dumps({"workload": work}))
-    print(json.dumps({"kernels": [kernel]}))
+    print(json.dumps({"kernels": [kernel, k2]}))
     print(card)
     print(json.dumps({
         "ok": True,

@@ -7,6 +7,9 @@ reversible Michaelis-Menten integrator over molecule concentrations.
 State lives in PyTorch tensors on one device (``"cuda"`` by default); the
 integrator runs as a hand-written CUDA kernel there
 (:mod:`magicsoup_tpu_torch.ops.cuda_integrate`), the rest as plain PyTorch.
+:class:`PipelinedStepper` runs the selection workload on the device with
+the host replaying a few steps behind; :class:`FleetScheduler` steps many
+worlds as groups, one batched dispatch per group.
 Genome string work runs in a multithreaded C++ engine (with a pure-Python
 fallback).  The package imports neither JAX nor :mod:`magicsoup_tpu`.
 """
@@ -25,6 +28,8 @@ from magicsoup_tpu_torch.kinetics import Kinetics
 from magicsoup_tpu_torch.mutations import point_mutations, recombinations
 from magicsoup_tpu_torch.util import codons, random_genome, randstr, variants
 from magicsoup_tpu_torch.world import World
+from magicsoup_tpu_torch.stepper import PipelinedStepper
+from magicsoup_tpu_torch.fleet import FleetScheduler
 
 __version__ = "0.1.0"
 
@@ -33,9 +38,11 @@ __all__ = [
     "Cell",
     "Chemistry",
     "DomainType",
+    "FleetScheduler",
     "Genetics",
     "Kinetics",
     "Molecule",
+    "PipelinedStepper",
     "Protein",
     "RegulatoryDomain",
     "TransporterDomain",

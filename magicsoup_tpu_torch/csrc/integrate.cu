@@ -2,8 +2,8 @@
 // Hopper (sm_90a).
 //
 // Replaces the TPU kernel magicsoup_tpu/ops/pallas_integrate.py::
-// integrate_signals_pallas, solo grid (the Pallas `_kernel`): three trim
-// passes (Vmax x 0.7, 0.2, 0.1) of the fast-mode integrator body
+// integrate_signals_pallas, both its solo grid (the Pallas `_kernel`) and
+// its batched grid over worlds (`_kernel_batched`): three trim passes (Vmax x 0.7, 0.2, 0.1) of the fast-mode integrator body
 // (magicsoup_tpu/ops/integrate.py::_integrate_part with det=False and the
 // exp-sum-log allosteric factor `_a_reg_logspace`), with the equilibrium
 // correction's early stop voted per tile of cells.  Its plain PyTorch
@@ -20,6 +20,14 @@
 // per-cell vectors -- signals X0, X1, log X, guard factors (s floats
 // each) and per-protein V, W, F and flags (p each) -- live in dynamic
 // shared memory sized from (p, s).
+//
+// Worlds.  The grid is (c / TILE_C, B): blockIdx.y is the world, and a
+// tile never crosses a world, so world w of a batched launch computes
+// exactly what a B = 1 launch on its slice computes.  X and the output are
+// (B, c, s) and contiguous; each parameter tensor holds B blocks of
+// `pstride` rows (pstride >= c), of which the kernel reads the first c, so
+// the live-row prefix of every world of a (B, cap, ...) stack runs without
+// a copy.  The solo grid is B = 1, pstride = c.
 //
 // Tiles.  A CTA is one tile of TILE_C = 8 cells (8 warps, 256 threads).
 // The early stop of the equilibrium correction is one __syncthreads_or
@@ -111,11 +119,14 @@ integrate_kernel(const float* __restrict__ X, const float* __restrict__ Ke,
                  const float* __restrict__ Kmr, const float* __restrict__ Vmax,
                  const int16_t* __restrict__ N, const int16_t* __restrict__ Nf,
                  const int16_t* __restrict__ Nb, const int16_t* __restrict__ A,
-                 float* __restrict__ out, int p, int s) {
+                 float* __restrict__ out, int c, int p, int s,
+                 int64_t pstride) {
   extern __shared__ float smem[];
   const int warp = threadIdx.x / WARP;
   const int lane = threadIdx.x % WARP;
-  const int64_t cell = (int64_t)blockIdx.x * TILE_C + warp;
+  const int64_t row = (int64_t)blockIdx.x * TILE_C + warp;
+  const int64_t cell = (int64_t)blockIdx.y * c + row;  // X / out row
+  const int64_t prow = (int64_t)blockIdx.y * pstride + row;  // params row
 
   // this warp's scratch: 4 signal vectors, 3 protein vectors, 1 flag vector
   float* x0 = smem + (size_t)warp * (4 * s + 4 * p);
@@ -127,16 +138,16 @@ integrate_kernel(const float* __restrict__ X, const float* __restrict__ Ke,
   float* Fe = W + p;
   int* flags = (int*)(Fe + p);
 
-  CellPtrs c;
-  c.Ke = Ke + cell * p;
-  c.Kmf = Kmf + cell * p;
-  c.Kmb = Kmb + cell * p;
-  c.Vmax = Vmax + cell * p;
-  c.Kmr = Kmr + cell * p * s;
-  c.N = N + cell * p * s;
-  c.Nf = Nf + cell * p * s;
-  c.Nb = Nb + cell * p * s;
-  c.A = A + cell * p * s;
+  CellPtrs cp;
+  cp.Ke = Ke + prow * p;
+  cp.Kmf = Kmf + prow * p;
+  cp.Kmb = Kmb + prow * p;
+  cp.Vmax = Vmax + prow * p;
+  cp.Kmr = Kmr + prow * p * s;
+  cp.N = N + prow * p * s;
+  cp.Nf = Nf + prow * p * s;
+  cp.Nb = Nb + prow * p * s;
+  cp.A = A + prow * p * s;
 
   for (int j = lane; j < s; j += WARP) x0[j] = X[cell * s + j];
 
@@ -153,7 +164,7 @@ integrate_kernel(const float* __restrict__ X, const float* __restrict__ Ke,
       for (int j = lane; j < s; j += WARP) {
         const int64_t o = (int64_t)k * s + j;
         const float l = lx[j];
-        const int nf = c.Nf[o], nb = c.Nb[o], a = c.A[o];
+        const int nf = cp.Nf[o], nb = cp.Nb[o], a = cp.A[o];
         sf += (float)nf * l;
         sb += (float)nb * l;
         anyf |= nf > 0;
@@ -161,7 +172,7 @@ integrate_kernel(const float* __restrict__ X, const float* __restrict__ Ke,
         float r = 1.f;
         if (a != 0) {
           const float xa = expf(fminf((float)a * l, log_max));
-          r = xa / (xa + c.Kmr[o]);
+          r = xa / (xa + cp.Kmr[o]);
           if (isnan(r)) r = 1.f;
         }
         sr += r > 0.f ? logf(r) : LOG0;
@@ -171,12 +182,12 @@ integrate_kernel(const float* __restrict__ X, const float* __restrict__ Ke,
       sr = warp_sum(sr);
       anyf = __any_sync(FULL, anyf);
       anyb = __any_sync(FULL, anyb);
-      float kf = prod_from_log(sf, 1) / c.Kmf[k];
+      float kf = prod_from_log(sf, 1) / cp.Kmf[k];
       kf = inf_to_max(anyf ? kf : 0.f);
-      float kb = prod_from_log(sb, 1) / c.Kmb[k];
+      float kb = prod_from_log(sb, 1) / cp.Kmb[k];
       kb = inf_to_max(anyb ? kb : 0.f);
       const float a_cat = (kf - kb) / (1.f + kf + kb);
-      const float vmax = max0_nan(c.Vmax[k] * trims[pass]);
+      const float vmax = max0_nan(cp.Vmax[k] * trims[pass]);
       const float a_reg = expf(sr);
       if (lane == 0) V[k] = clip_nan(a_cat * vmax * a_reg, MIN_F, MAX_F);
     }
@@ -186,7 +197,7 @@ integrate_kernel(const float* __restrict__ X, const float* __restrict__ Ke,
     for (int j = lane; j < s; j += WARP) {
       float removed = 0.f;
       for (int k = 0; k < p; ++k) {
-        const float m = -((float)c.N[(int64_t)k * s + j] * V[k]);
+        const float m = -((float)cp.N[(int64_t)k * s + j] * V[k]);
         removed += max0_nan(m);
       }
       const float f = x0[j] / removed;
@@ -196,7 +207,7 @@ integrate_kernel(const float* __restrict__ X, const float* __restrict__ Ke,
       const float v = V[k];
       float m = 1.f;
       for (int j = lane; j < s; j += WARP) {
-        const float nv = (float)c.N[(int64_t)k * s + j] * v;
+        const float nv = (float)cp.N[(int64_t)k * s + j] * v;
         m = min_nan(m, nv < 0.f ? fneg[j] : 1.f);
       }
       m = warp_min_nan(m);
@@ -208,7 +219,7 @@ integrate_kernel(const float* __restrict__ X, const float* __restrict__ Ke,
     // ---- X1 = X0 + sum_p N*W, clamped at 0 (_weighted_dx) ----
     for (int j = lane; j < s; j += WARP) {
       float acc = 0.f;
-      for (int k = 0; k < p; ++k) acc += (float)c.N[(int64_t)k * s + j] * W[k];
+      for (int k = 0; k < p; ++k) acc += (float)cp.N[(int64_t)k * s + j] * W[k];
       const float x = x0[j] + acc;
       x1[j] = x < 0.f ? 0.f : x;
     }
@@ -223,7 +234,7 @@ integrate_kernel(const float* __restrict__ X, const float* __restrict__ Ke,
         for (int j = lane; j < s; j += WARP) {
           const int64_t o = (int64_t)k * s + j;
           const float l = lx[j];
-          const int nf = c.Nf[o], nb = c.Nb[o];
+          const int nf = cp.Nf[o], nb = cp.Nb[o];
           sf += (float)nf * l;
           sb += (float)nb * l;
           anyf |= nf > 0;
@@ -237,7 +248,7 @@ integrate_kernel(const float* __restrict__ X, const float* __restrict__ Ke,
         const float xx_subs = prod_from_log(sf, anyf);
         float q = clip_nan(xx_prod / xx_subs, EPS_F, MAX_F);
         if (isnan(q)) q = 1.f;
-        const float qke = q / c.Ke[k];
+        const float qke = q / cp.Ke[k];
         const float v = V[k];
         const float f = Fe[k];
         const bool fwd = v > 0.f;
@@ -261,7 +272,7 @@ integrate_kernel(const float* __restrict__ X, const float* __restrict__ Ke,
       for (int j = lane; j < s; j += WARP) {
         float acc = 0.f;
         for (int k = 0; k < p; ++k)
-          acc += (float)c.N[(int64_t)k * s + j] * (W[k] * Fe[k]);
+          acc += (float)cp.N[(int64_t)k * s + j] * (W[k] * Fe[k]);
         const float x = x0[j] + acc;
         x1[j] = x < 0.f ? 0.f : x;
       }
@@ -285,22 +296,26 @@ size_t ms_integrate_smem_bytes(int p, int s) {
   return (size_t)TILE_C * (4 * (size_t)s + 4 * (size_t)p) * sizeof(float);
 }
 
-// X/out (c, s) f32; Ke/Kmf/Kmb/Vmax (c, p) f32; Kmr (c, p, s) f32;
-// N/Nf/Nb/A (c, p, s) i16; all row-major and contiguous; c % TILE_C == 0.
-// Launches on `stream` without synchronizing; returns cudaGetLastError().
+// X/out (B, c, s) f32, contiguous.  Per world, pstride rows of
+// Ke/Kmf/Kmb/Vmax (p) f32, Kmr (p, s) f32 and N/Nf/Nb/A (p, s) i16, rows
+// row-major; the first c rows of each world are read.  c % TILE_C == 0,
+// B <= 65535.  Launches on `stream` without synchronizing; returns
+// cudaGetLastError().
 int ms_integrate_signals(const float* X, const float* Ke, const float* Kmf,
                          const float* Kmb, const float* Kmr, const float* Vmax,
                          const int16_t* N, const int16_t* Nf, const int16_t* Nb,
-                         const int16_t* A, float* out, int c, int p, int s,
-                         void* stream) {
+                         const int16_t* A, float* out, int B, int c, int p,
+                         int s, long long pstride, void* stream) {
   const size_t smem = ms_integrate_smem_bytes(p, s);
   cudaError_t err = cudaFuncSetAttribute(
       integrate_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
-  if (c == 0) return (int)cudaSuccess;
-  integrate_kernel<<<c / TILE_C, TILE_C * WARP, smem, (cudaStream_t)stream>>>(
-      X, Ke, Kmf, Kmb, Kmr, Vmax, N, Nf, Nb, A, out, p, s);
+  if (c == 0 || B == 0) return (int)cudaSuccess;
+  const dim3 grid(c / TILE_C, B);
+  integrate_kernel<<<grid, TILE_C * WARP, smem, (cudaStream_t)stream>>>(
+      X, Ke, Kmf, Kmb, Kmr, Vmax, N, Nf, Nb, A, out, c, p, s,
+      (int64_t)pstride);
   return (int)cudaGetLastError();
 }
 

@@ -1,9 +1,10 @@
 """
 State carried into the port as numpy arrays: kinetic parameters, token
-tables, and a whole world's state exported from another implementation
-(e.g. :class:`magicsoup_tpu.world.World`), so that both compute from the
-same state.  Takes numpy arrays only; imports neither JAX nor the JAX
-package.
+tables, a whole world's state exported from another implementation (e.g.
+:class:`magicsoup_tpu.world.World`), and a pipelined stepper's device
+state, one world's or a fleet group's stacked one, so that both compute
+from the same state.  Takes numpy arrays only; imports neither JAX nor
+the JAX package.
 """
 import numpy as np
 import torch
@@ -99,3 +100,32 @@ def load_world_arrays(world, arrays: dict) -> None:
     for dst, s in zip(kin.params, src):
         dst.zero_()
         dst[:n, :p] = s
+
+
+_STATE_DTYPES = {
+    "mm": torch.float32,
+    "cm": torch.float32,
+    "pos": torch.int64,
+    "occ": torch.bool,
+    "alive": torch.bool,
+    "n_rows": torch.int64,
+    "key": torch.int64,
+}
+
+
+def device_state_from_numpy(d: dict[str, np.ndarray], device):
+    """A :class:`~magicsoup_tpu_torch.stepper.DeviceState` from arrays
+    keyed by its seven field names (``mm`` ``(mols, m, m)``, ``cm``,
+    ``pos``, ``occ``, ``alive``, ``n_rows`` and the uint32 ``key`` words),
+    as one world's stepper holds them or stacked on a leading world axis
+    as a fleet group holds them; one world gets a world axis of 1."""
+    from magicsoup_tpu_torch.stepper import DeviceState
+
+    solo = np.ndim(d["mm"]) == 3
+    out = {}
+    for k, dt in _STATE_DTYPES.items():
+        arr = np.asarray(d[k])
+        if dt == torch.int64:
+            arr = arr.astype(np.int64)  # the key words are uint32
+        out[k] = _tensor(arr[None] if solo else arr, dt, device)
+    return DeviceState(**out)

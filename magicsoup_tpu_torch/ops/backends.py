@@ -12,8 +12,9 @@ backends:
   to ``xla-det`` on the CPU.
 - ``cuda`` — the hand-written CUDA kernel
   (:mod:`magicsoup_tpu_torch.ops.cuda_integrate`), the counterpart of
-  ``pallas``: fast mode only, early stop per tile of 8 cells.  On CPU
-  tensors it runs its plain version at the same tile.
+  ``pallas``: fast mode only, early stop per tile of 8 cells, one launch
+  for one world or for a batch of worlds.  On CPU tensors it runs its
+  plain version at the same tile.
 
 :func:`resolve` keeps the JAX package's precedence: an explicit
 ``integrator`` argument, then the ``MAGICSOUP_TPU_TORCH_INTEGRATOR`` env
@@ -21,15 +22,11 @@ var, then the numeric mode and the device (``torch-det`` when
 deterministic; else ``cuda`` on a CUDA device, ``torch-fast`` on the CPU).
 """
 
-import functools
 import os
 from typing import NamedTuple
 
-from magicsoup_tpu_torch.ops.cuda_integrate import (
-    integrate_signals_cuda,
-    integrate_signals_tiled,
-)
-from magicsoup_tpu_torch.ops.integrate import integrate_signals
+from magicsoup_tpu_torch.ops.cuda_integrate import integrate_signals_cuda
+from magicsoup_tpu_torch.ops.integrate import CellParams, integrate_grouped
 
 #: env var naming a backend explicitly (below the ``integrator`` argument)
 ENV_VAR = "MAGICSOUP_TPU_TORCH_INTEGRATOR"
@@ -98,21 +95,18 @@ def resolve(
     return backend.name, True
 
 
-@functools.lru_cache(maxsize=None)
-def integrator_fn(name: str):
-    """The backend's integrator as a plain ``(X, params) -> X1`` callable."""
+def integrate(name: str, X, params):
+    """Dispatch one integrator step through backend ``name``.  ``X`` is
+    ``(B, c, s)`` for B worlds, every parameter carrying the same leading
+    world axis: ``cuda`` runs one kernel launch for all B worlds,
+    ``torch-fast`` and ``torch-det`` their body per world (the early stop
+    never spans two worlds).  ``X`` ``(c, s)`` is one world, run as
+    ``B = 1``."""
+    if X.ndim == 2:
+        return integrate(name, X[None], CellParams(*(t[None] for t in params)))[0]
     backend = get_backend(name)
     if backend.name == "cuda":
-        return integrate_signals_cuda
-    if backend.name == "torch-det":
-        return functools.partial(integrate_signals, det=True)
-
-    def torch_fast(X, params):
-        return integrate_signals_tiled(X, params, tile_c=max(X.shape[0], 1))
-
-    return torch_fast
-
-
-def integrate(name: str, X, params):
-    """Dispatch one integrator step through backend ``name``."""
-    return integrator_fn(name)(X, params)
+        return integrate_signals_cuda(X, params)
+    if X.shape[1] == 0:
+        return X.clone()
+    return integrate_grouped(X, params, det=backend.name == "torch-det")

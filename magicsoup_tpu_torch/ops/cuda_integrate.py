@@ -3,19 +3,24 @@ The integrator's hand-written CUDA kernel (``csrc/integrate.cu``), its
 wrapper, its tile table and its plain PyTorch version.
 
 The kernel replaces the JAX package's Pallas kernel
-(:func:`magicsoup_tpu.ops.pallas_integrate.integrate_signals_pallas`, solo
-grid): the fast-mode integrator over tiles of ``TILE_C = 8`` cells, with
-the equilibrium correction's early stop voted per tile.  The tile size is
-part of the observable numerics (cells stop with their tile-mates), so
-the plain version takes the same tile.
+(:func:`magicsoup_tpu.ops.pallas_integrate.integrate_signals_pallas`): the
+fast-mode integrator over tiles of ``TILE_C = 8`` cells, with the
+equilibrium correction's early stop voted per tile.  The tile size is part
+of the observable numerics (cells stop with their tile-mates), so the
+plain version takes the same tile.  Its grid is ``(c / TILE_C, B)`` over B
+worlds (the Pallas batched grid ``(B, c // tile_c)``; one world is the
+solo grid); a tile never crosses a world, so world w's result equals a
+B = 1 launch on its slice.
 
-- :func:`integrate_signals_cuda` is the entry point.  On CUDA tensors it
-  launches the kernel on the current stream, without synchronizing, and
-  adds one to :data:`launches`; it raises on anything the kernel does not
-  take, and never falls back.  On CPU tensors it runs the plain version.
-- :func:`integrate_signals_tiled` is the plain version: the shared body of
-  :mod:`magicsoup_tpu_torch.ops.integrate` with a leading tile axis.  With
-  ``tile_c = c`` it is the port's ``torch-fast`` backend.
+:func:`integrate_signals_cuda` takes ``X`` ``(B, c, s)`` and parameters
+``(B, c, ...)``; each parameter may be the live-row prefix of a ``(B, cap,
+...)`` stack: the kernel takes the world stride, so nothing is copied.  On
+CUDA tensors it launches the kernel once for all B worlds on the current
+stream without synchronizing, and adds one to :data:`launches`; it raises
+on anything the kernel does not take, and never falls back.  On CPU
+tensors it runs the plain version, :func:`integrate_signals_tiled`: the
+shared body of :mod:`magicsoup_tpu_torch.ops.integrate` with a leading
+tile axis.
 
 The kernel is built from the repo's source with ``nvcc`` at first use
 (:mod:`magicsoup_tpu_torch._build`), into a plain shared library loaded
@@ -73,13 +78,18 @@ def integrate_signals_tiled(
     X: torch.Tensor, params: CellParams, tile_c: int
 ) -> torch.Tensor:
     """Plain PyTorch version of the kernel: the fast-mode integrator over
-    tiles of ``tile_c`` cells, each tile with its own early stop."""
-    c = X.shape[0]
+    tiles of ``tile_c`` cells, each tile with its own early stop.  ``X`` is
+    ``(c, s)`` or ``(B, c, s)``, with the parameters' leading axes alike;
+    a tile never crosses a world."""
+    c, s = X.shape[-2:]
     if c % tile_c != 0:
         raise ValueError(f"cell count {c} not divisible by tile_c={tile_c}")
+    lead = X.ndim - 1
     out = integrate_grouped(
-        group_rows(X, tile_c),
-        CellParams(*(group_rows(t, tile_c) for t in params)),
+        group_rows(X.reshape(-1, s), tile_c),
+        CellParams(
+            *(group_rows(t.reshape((-1,) + tuple(t.shape[lead:])), tile_c) for t in params)
+        ),
         det=False,
     )
     return out.reshape(X.shape)
@@ -110,7 +120,9 @@ def _lib():
         if _LIB is None:
             lib = ctypes.CDLL(str(build()))
             vp, ci = ctypes.c_void_p, ctypes.c_int
-            lib.ms_integrate_signals.argtypes = [vp] * 11 + [ci] * 3 + [vp]
+            lib.ms_integrate_signals.argtypes = (
+                [vp] * 11 + [ci] * 4 + [ctypes.c_longlong, vp]
+            )
             lib.ms_integrate_signals.restype = ci
             lib.ms_integrate_smem_bytes.argtypes = [ci, ci]
             lib.ms_integrate_smem_bytes.restype = ctypes.c_size_t
@@ -123,23 +135,29 @@ def _lib():
     return _LIB
 
 
-def _check(X: torch.Tensor, params: CellParams) -> None:
-    c, s = X.shape
-    p = params.Ke.shape[1]
+def _check(X: torch.Tensor, params: CellParams) -> int:
+    """Validate ``X`` ``(B, c, s)`` and the parameters ``(B, c, ...)``;
+    returns the parameters' world stride in rows (each may be the c-row
+    prefix of a ``(B, cap, ...)`` stack, rows contiguous)."""
+    B, c, s = X.shape
+    p = params.Ke.shape[-1]
     want = {
-        "Ke": ((c, p), torch.float32),
-        "Kmf": ((c, p), torch.float32),
-        "Kmb": ((c, p), torch.float32),
-        "Kmr": ((c, p, s), torch.float32),
-        "Vmax": ((c, p), torch.float32),
-        "N": ((c, p, s), INT_PARAM_DTYPE),
-        "Nf": ((c, p, s), INT_PARAM_DTYPE),
-        "Nb": ((c, p, s), INT_PARAM_DTYPE),
-        "A": ((c, p, s), INT_PARAM_DTYPE),
+        "Ke": ((B, c, p), torch.float32),
+        "Kmf": ((B, c, p), torch.float32),
+        "Kmb": ((B, c, p), torch.float32),
+        "Kmr": ((B, c, p, s), torch.float32),
+        "Vmax": ((B, c, p), torch.float32),
+        "N": ((B, c, p, s), INT_PARAM_DTYPE),
+        "Nf": ((B, c, p, s), INT_PARAM_DTYPE),
+        "Nb": ((B, c, p, s), INT_PARAM_DTYPE),
+        "A": ((B, c, p, s), INT_PARAM_DTYPE),
     }
-    tensors = {"X": X, **params._asdict()}
-    want["X"] = ((c, s), torch.float32)
-    for name, t in tensors.items():
+    if X.dtype != torch.float32:
+        raise TypeError(f"X must be {torch.float32}, got {X.dtype}")
+    if not X.is_contiguous():
+        raise ValueError("X must be contiguous")
+    strides = set()
+    for name, t in params._asdict().items():
         shape, dtype = want[name]
         if t.device != X.device:
             raise ValueError(f"{name} is on {t.device}, X on {X.device}")
@@ -147,36 +165,27 @@ def _check(X: torch.Tensor, params: CellParams) -> None:
             raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
         if tuple(t.shape) != shape:
             raise ValueError(f"{name} must have shape {shape}, got {tuple(t.shape)}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+        if B == 0 or c == 0:
+            continue
+        row = t[0, 0].numel()
+        if not t[0].is_contiguous():
+            raise ValueError(f"{name} must be contiguous within each world")
+        if B > 1 and (t.stride(0) % row or t.stride(0) < c * row):
+            raise ValueError(f"{name} must hold whole rows per world")
+        strides.add(t.stride(0) // row if B > 1 else c)
+    if not strides:
+        return c
+    if len(strides) != 1:
+        raise ValueError("the parameters disagree on their world stride")
+    return strides.pop()
 
 
-def integrate_signals_cuda(
-    X: torch.Tensor, params: CellParams, tile_c: int | None = None
-) -> torch.Tensor:
-    """
-    One integrator step over signals ``X`` (c, s) in tiles of ``tile_c``
-    cells (default :func:`select_tile_c`).  CUDA tensors go through the
-    kernel, which takes ``tile_c == TILE_C`` only; CPU tensors go through
-    :func:`integrate_signals_tiled`.
-    """
-    global launches
-    if X.ndim != 2:
-        raise ValueError(f"X must be (cells, signals), got {tuple(X.shape)}")
-    _check(X, params)
-    if tile_c is None:
-        tile_c = select_tile_c(X.shape[0])
-    if X.device.type == "cpu":
-        return integrate_signals_tiled(X, params, tile_c)
-    if X.device.type != "cuda":
-        raise ValueError(f"no integrator kernel for device {X.device}")
-    if tile_c != TILE_C:
-        raise ValueError(
-            f"the CUDA kernel runs tiles of {TILE_C} cells, not {tile_c}"
-        )
-    select_tile_c(X.shape[0])
-    c, s = X.shape
-    p = params.Ke.shape[1]
+def _launch(X: torch.Tensor, params: CellParams) -> torch.Tensor:
+    """Launch the kernel on ``X`` ``(B, c, s)``; the output tensor."""
+    pstride = _check(X, params)
+    select_tile_c(X.shape[1])
+    B, c, s = X.shape
+    p = params.Ke.shape[-1]
     lib = _lib()
     smem = lib.ms_integrate_smem_bytes(p, s)
     limit = torch.cuda.get_device_properties(X.device).shared_memory_per_block_optin
@@ -185,6 +194,8 @@ def integrate_signals_cuda(
             f"{p} proteins x {s} signals need {smem} bytes of shared memory"
             f" per tile of {TILE_C} cells; the card allows {limit}"
         )
+    if B > 65535:
+        raise ValueError(f"{B} worlds exceed the grid's 65535")
     out = torch.empty_like(X)
     with torch.cuda.device(X.device):
         stream = torch.cuda.current_stream(X.device).cuda_stream
@@ -200,14 +211,51 @@ def integrate_signals_cuda(
             params.Nb.data_ptr(),
             params.A.data_ptr(),
             out.data_ptr(),
+            B,
             c,
             p,
             s,
+            pstride,
             stream,
         )
     if err != 0:
         raise RuntimeError(
             f"integrator kernel launch failed: {lib.ms_error_string(err).decode()}"
         )
+    return out
+
+
+def _route(X: torch.Tensor, tile_c: int | None) -> int:
+    """The tile for ``X`` ``(..., c, s)``; raises where the kernel cannot
+    run it on X's device."""
+    c = X.shape[-2]
+    if tile_c is None:
+        tile_c = select_tile_c(c)
+    if X.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no integrator kernel for device {X.device}")
+    if X.device.type == "cuda" and tile_c != TILE_C:
+        raise ValueError(f"the CUDA kernel runs tiles of {TILE_C} cells, not {tile_c}")
+    return tile_c
+
+
+def integrate_signals_cuda(
+    X: torch.Tensor, params: CellParams, tile_c: int | None = None
+) -> torch.Tensor:
+    """
+    One integrator step for B worlds: signals ``X`` (B, c, s), parameters
+    (B, c, ...), possibly the c-row prefixes of (B, cap, ...) stacks, in
+    tiles of ``tile_c`` cells of one world (default
+    :func:`select_tile_c`).  CUDA tensors go through one launch of the
+    kernel, which takes ``tile_c == TILE_C`` only; CPU tensors go through
+    :func:`integrate_signals_tiled`.
+    """
+    global launches
+    if X.ndim != 3:
+        raise ValueError(f"X must be (worlds, cells, signals), got {tuple(X.shape)}")
+    _check(X, params)
+    tile_c = _route(X, tile_c)
+    if X.device.type == "cpu":
+        return integrate_signals_tiled(X, params, tile_c)
+    out = _launch(X, params)
     launches += 1
     return out

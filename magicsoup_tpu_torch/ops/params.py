@@ -132,6 +132,18 @@ def _nanmean0(x: torch.Tensor, dim: int) -> torch.Tensor:
     return torch.where(count > 0, mean, torch.zeros_like(mean))
 
 
+_GAS: dict = {}
+
+
+def _gas_constant(device: torch.device) -> torch.Tensor:
+    """The gas constant as a float32 scalar on ``device``, made once: a
+    host->device copy per assembly would synchronize the card's stream."""
+    t = _GAS.get(device)
+    if t is None:
+        t = _GAS[device] = torch.tensor(GAS_CONSTANT, dtype=torch.float32, device=device)
+    return t
+
+
 def compute_cell_params(
     dense: torch.Tensor,  # (b, p, d, 5) i16 [dom_type, i0, i1, i2, i3]
     tables: TokenTables,
@@ -195,8 +207,9 @@ def _compute_cell_params(dense, tables: TokenTables, abs_temp) -> CellParams:
 
     # energies -> equilibrium constant, clamped against Inf/0
     E = sum_axis(N.to(torch.float32) * tables.mol_energies, 2)
-    gas = torch.tensor(GAS_CONSTANT, dtype=torch.float32, device=E.device)
-    Ke = torch.clamp(det_exp(det_div(det_div(-E, abs_temp), gas)), EPS, MAX)
+    Ke = torch.clamp(
+        det_exp(det_div(det_div(-E, abs_temp), _gas_constant(E.device))), EPS, MAX
+    )
 
     # sampled Km defines the smaller side of Ke = Kmf/Kmb
     is_fwd = Ke >= 1.0
@@ -259,15 +272,39 @@ def copy_rows(state: CellParams, from_idxs: torch.Tensor, to_idxs: torch.Tensor)
         s[to_idxs] = s[from_idxs]
 
 
-def compact_rows(arr: torch.Tensor, perm: torch.Tensor, n_keep: int) -> torch.Tensor:
+def compact_rows(arr: torch.Tensor, perm: torch.Tensor, n_keep) -> torch.Tensor:
     """Gather rows by a full-capacity permutation and zero rank >= n_keep —
     the one implementation of stable compaction-on-kill, shared by every
-    per-cell tensor."""
+    per-cell tensor.  ``n_keep`` is an int or a device scalar (read
+    without a host synchronization)."""
     out = arr[perm]
+    if torch.is_tensor(n_keep):
+        rank = torch.arange(perm.shape[0], device=arr.device)
+        drop = (rank >= n_keep).view((-1,) + (1,) * (out.ndim - 1))
+        return out.masked_fill(drop, 0)
     out[n_keep:] = 0
     return out
 
 
-def permute_params(state: CellParams, perm: torch.Tensor, n_keep: int) -> CellParams:
+def permute_params(state: CellParams, perm: torch.Tensor, n_keep) -> CellParams:
     """:func:`compact_rows` over all nine parameter tensors."""
     return CellParams(*(compact_rows(s, perm, n_keep) for s in state))
+
+
+def write_new_rows(
+    t: torch.Tensor, n_rows: torch.Tensor, values: torch.Tensor, count: torch.Tensor
+) -> None:
+    """Append rows at each world's high-water mark, in place and without
+    a host synchronization: ``t[w, n_rows[w] + j] = values[w, j]`` for
+    ``j < count[w]``, ``t`` being ``(B, cap, ...)``.  The JAX package
+    scatters with out-of-bounds drops; here a window of ``D =
+    values.shape[1] <= cap`` distinct rows starting at ``n_rows[w]``
+    (wrapping mod cap) is written, its entries past ``count[w]`` with
+    their row's own current value, so every write is unique and exact."""
+    B, cap = t.shape[:2]
+    D = values.shape[1]
+    j = torch.arange(D, device=t.device)
+    dst = (n_rows[:, None] + j) % cap
+    bidx = torch.arange(B, device=t.device)[:, None].expand(B, D)
+    keep = (j[None, :] < count[:, None]).view((B, D) + (1,) * (t.ndim - 2))
+    t[bidx, dst] = torch.where(keep, values, t[bidx, dst])

@@ -5,8 +5,8 @@ torus geometry, and the one device->host boundary.
 Counterpart of :mod:`magicsoup_tpu.util`, with the same seeded helpers
 (every stochastic helper takes an optional ``rng``, a ``random.Random``,
 and consumes it exactly as the JAX package does, so seeded worlds match).
-The compile-warming scheduler and the background fetch workers of the JAX
-package have no role here: PyTorch runs eagerly and compiles nothing.
+The compile-warming scheduler of the JAX package has no role here:
+PyTorch runs eagerly and compiles nothing.
 """
 import random
 import string
@@ -119,6 +119,35 @@ def fetch_host(t) -> np.ndarray:
     """Tensor -> host numpy: the port's one device->host boundary.  On a
     CUDA tensor this is a synchronizing copy."""
     return t.detach().cpu().numpy()
+
+
+# Background worker threads (the pipelined stepper's record fetcher and
+# evolution worker) are daemon threads, so one hung on a device wait never
+# blocks process exit; every worker registers here, and one atexit hook
+# asks them to stop and joins them with a bounded timeout before teardown.
+_EXIT_JOIN_TIMEOUT_S = 60.0
+_EXIT_REGISTRY = None
+
+
+def register_exit_join(worker) -> None:
+    """Register ``worker`` (anything with ``exit_join(timeout)``) for the
+    stop-and-join at exit."""
+    global _EXIT_REGISTRY
+    if _EXIT_REGISTRY is None:
+        import atexit
+        import weakref
+
+        _EXIT_REGISTRY = weakref.WeakSet()
+
+        def _join_all() -> None:
+            for w in list(_EXIT_REGISTRY):
+                try:
+                    w.exit_join(_EXIT_JOIN_TIMEOUT_S)
+                except Exception:  # noqa: BLE001 - exit path, best effort
+                    pass
+
+        atexit.register(_join_all)
+    _EXIT_REGISTRY.add(worker)
 
 
 def moore_pairs(positions, map_size: int) -> np.ndarray:

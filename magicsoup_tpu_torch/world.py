@@ -25,6 +25,7 @@ The molecule tensors are replaced, never written in place, by every step
 (the JAX package's arrays are immutable, and the host snapshots below are
 cached by tensor identity).  Parameter rows are written in place.
 """
+import functools
 import random
 from contextlib import nullcontext
 
@@ -206,7 +207,9 @@ class World:
             _diff.degradation_factors([d.half_life for d in mols])
         )
 
-        # host-side state
+        # host-side state; genomes are host strings (the token genome
+        # store of the JAX package is not ported)
+        self._genome_store = None
         self.n_cells = 0
         self._genomes_list: list[str] = []
         self.cell_labels: list[str] = []
@@ -732,7 +735,7 @@ class World:
         q = quantize_rows(self.n_cells, self._capacity)
         with self._ftz():
             self._molecule_map, self._cell_molecules = _enzymatic_activity(
-                _backends.integrator_fn(self.integrator),
+                functools.partial(_backends.integrate, self.integrator),
                 self._molecule_map,
                 self._cell_molecules,
                 self._positions_dev,
@@ -773,6 +776,20 @@ class World:
         """:meth:`degrade_molecules` followed by :meth:`diffuse_molecules`."""
         self.degrade_molecules()
         self.diffuse_molecules()
+
+    def step_many(self, n_steps: int):
+        """Run ``n_steps`` chemistry steps — each :meth:`enzymatic_activity`
+        followed by :meth:`degrade_and_diffuse_molecules` — plus the
+        matching lifetime increments.  The JAX package fuses them into one
+        program; eager PyTorch enqueues them back to back without a host
+        wait, with the same result as the serial calls."""
+        n_steps = int(n_steps)
+        if n_steps < 1:
+            raise ValueError("n_steps must be >= 1")
+        for _ in range(n_steps):
+            self.enzymatic_activity()
+            self.degrade_and_diffuse_molecules()
+        self._np_lifetimes[: self.n_cells] += n_steps
 
     def increment_cell_lifetimes(self):
         """Increment ``cell_lifetimes`` by 1"""

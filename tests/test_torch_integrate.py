@@ -4,7 +4,7 @@ inputs:
 
 - ``torch-fast`` against ``integrate_signals(det=False)`` and the CUDA
   kernel's plain version (what ``integrate_signals_cuda`` runs on CPU
-  tensors) against the Pallas kernel in interpret mode, both under the
+  tensors, here as one world) against the Pallas kernel in interpret mode, both under the
   fast contract of tests/fast/test_pallas_integrate.py: the two sides
   differ in the rounding of exp/log and in summation order;
 - ``torch-det`` against ``integrate_signals(det=True)``: bit-equal.
@@ -28,7 +28,7 @@ from magicsoup_tpu.ops.integrate import integrate_signals as jintegrate  # noqa:
 from magicsoup_tpu.ops.pallas_integrate import integrate_signals_pallas  # noqa: E402
 from magicsoup_tpu_torch.ops import backends  # noqa: E402
 from magicsoup_tpu_torch.ops import cuda_integrate as ci  # noqa: E402
-from magicsoup_tpu_torch.ops.integrate import integrate_signals  # noqa: E402
+from magicsoup_tpu_torch.ops.integrate import CellParams, integrate_signals  # noqa: E402
 from magicsoup_tpu_torch.interop import params_from_numpy  # noqa: E402
 
 
@@ -85,6 +85,13 @@ def _torch(X, d):
     return torch.from_numpy(X), params_from_numpy(d, "cpu")
 
 
+def _one_world(X, d):
+    """The tensors of ``_torch`` with a leading world axis of 1, as the
+    kernel's wrapper takes them."""
+    Xt, params = _torch(X, d)
+    return Xt[None], CellParams(*(t[None] for t in params))
+
+
 @pytest.mark.parametrize("seed", [0, 1])
 def test_torch_fast_matches_xla_fast(seed):
     X, d = _inputs(seed=seed)
@@ -106,7 +113,7 @@ def test_plain_tiled_matches_pallas_interpret(tile_c):
     X, d = _inputs(seed=3)
     ref = np.asarray(integrate_signals_pallas(*_jax(X, d), tile_c=tile_c, interpret=True))
     before = ci.launches
-    out = ci.integrate_signals_cuda(*_torch(X, d), tile_c=tile_c).numpy()
+    out = ci.integrate_signals_cuda(*_one_world(X, d), tile_c=tile_c)[0].numpy()
     assert ci.launches == before  # CPU tensors never launch the kernel
     _assert_fast_contract(out, ref)
 
@@ -114,7 +121,7 @@ def test_plain_tiled_matches_pallas_interpret(tile_c):
 def test_edge_cases_match_pallas_interpret():
     X, d = _edge_inputs()
     ref = np.asarray(integrate_signals_pallas(*_jax(X, d), tile_c=8, interpret=True))
-    out = ci.integrate_signals_cuda(*_torch(X, d)).numpy()
+    out = ci.integrate_signals_cuda(*_one_world(X, d))[0].numpy()
     _assert_fast_contract(out, ref)
     # dead rows are inert; an all-zero cell stays finite
     assert np.array_equal(out[8:16], X[8:16])
@@ -139,21 +146,21 @@ def test_tile_table_refuses_non_multiples():
         ci.select_tile_c(12)
     X, d = _inputs(c=12)
     with pytest.raises(ValueError, match="does not divide"):
-        ci.integrate_signals_cuda(*_torch(X, d))
+        ci.integrate_signals_cuda(*_one_world(X, d))
 
 
 def test_wrapper_checks_inputs():
     X, d = _inputs(c=16)
-    Xt, params = _torch(X, d)
+    Xt, params = _one_world(X, d)
     with pytest.raises(TypeError, match="N must be torch.int16"):
         ci.integrate_signals_cuda(Xt, params._replace(N=params.N.to(torch.int32)))
     with pytest.raises(TypeError, match="X must be torch.float32"):
         ci.integrate_signals_cuda(Xt.double(), params)
     with pytest.raises(ValueError, match="Kmr must be contiguous"):
-        kmr = params.Kmr.transpose(1, 2).contiguous().transpose(1, 2)
+        kmr = params.Kmr.transpose(2, 3).contiguous().transpose(2, 3)
         ci.integrate_signals_cuda(Xt, params._replace(Kmr=kmr))
     with pytest.raises(ValueError, match="Kmf must have shape"):
-        ci.integrate_signals_cuda(Xt, params._replace(Kmf=params.Kmf[:, :4].contiguous()))
+        ci.integrate_signals_cuda(Xt, params._replace(Kmf=params.Kmf[:, :, :4].contiguous()))
 
 
 def test_backend_resolution(monkeypatch):
@@ -183,8 +190,8 @@ def test_kernel_matches_plain_version_on_the_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     X, d = _inputs(c=1024, p=16, s=28, seed=5)
-    Xt = torch.from_numpy(X).cuda()
-    params = params_from_numpy(d, "cuda")
+    Xt = torch.from_numpy(X).cuda()[None]
+    params = CellParams(*(t[None] for t in params_from_numpy(d, "cuda")))
     before = ci.launches
     out = ci.integrate_signals_cuda(Xt, params)
     torch.cuda.synchronize()
