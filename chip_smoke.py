@@ -61,21 +61,55 @@ Smoke run of the PyTorch/CUDA port on one CUDA card:
    of the fleet's (B = 4, q = capacity), against the plain version under
    the real-state contract of 4 on the rows with any protein (the rest
    must equal the plain version exactly); the kernel's and the plain
-   version's times on them.
+   version's times on them;
+10. digests: the sha256 of K1's output on the seeded inputs of 3 at
+    q = 10240 (p 32, s 28) and of K2's at 4 x 16384 rows, each equal to
+    its committed value (``DIGESTS``), so a change of the kernel's source
+    keeps its bits;
+11. K3, the integrator's lowering ladder
+    (``magicsoup_tpu_torch.performance.kernel_bisect``): every rung (1-11
+    the kernels of ``csrc/bisect.cu``, 12-13 the production entry) against
+    its plain version under its contract, at the JAX ladder's defaults
+    (256 x 8 x 12) and at the workload's shape (10240 x 32 x 28); rung 11
+    bit-equal to K1, each world of rung 12 bit-equal to its own launch;
+    per rung its time, the plain version's, its bytes, its byte bound and
+    the time of the one PyTorch call that computes it, where there is one;
+    the ladder's kernel launch count is set to 0 just before and read just
+    after;
+12. the integrator microbenchmark
+    (``magicsoup_tpu_torch.performance.integrator_bench``) at its defaults
+    (16384 x 32 x 28, 75% live rows, chains of 10 steps, median of 7):
+    ``cuda`` at B 1 and 4, ``torch-fast`` at B 1, one kernel launch per
+    chained ``cuda`` step;
+13. deterministic mode on the card against the CPU, as
+    ``scripts/bitrepro.py`` checks it: the workload step of 5 at 500
+    cells, a 64x64 map, 300-bp genomes, seed 7, 20 steps on
+    ``device="cpu"`` and on ``"cuda"`` in lockstep with
+    ``MAGICSOUP_TPU_DETERMINISTIC=1``, every piece of state hashed after
+    every step; then the pipelined stepper at K = 1 for 10 dispatches on
+    both devices, with the arguments of the CPU parity tests, compared
+    after ``flush()``; the first divergent (step, tensor), with its
+    largest absolute and ULP difference, fails the run.  The 20 steps also
+    run on the CPU without the flush-to-zero bit (the card keeps
+    subnormals as that run does), and whether and where its bits first
+    differ from the flushed CPU run's is recorded.
+
+Phases 10 and 11 run right after the build, 12 and 13 after 9.
 
 It prints a ``{"workload": ...}`` line, a ``{"stepper": ...}`` line, a
 ``{"fleet": ...}`` line, the flags per window, the seeded and real-state
-K2 lines, a ``{"kernels": [...]}`` line, the card's name and
-power limit, and as its last line ``{"ok": true, "device": {...}}``.  Any
-failure raises, and the run exits non-zero without that last line.  It
-needs one card.
+K2 lines, the digests, ladder, microbenchmark and det lines, a
+``{"kernels": [...]}`` line, the card's name and power limit, and as its
+last line ``{"ok": true, "device": {...}}``.  Any failure raises, and the
+run exits non-zero without that last line.  It needs one card.
 
     python3 chip_smoke.py [--dump DIR]
 """
+import contextlib
+import hashlib
 import json
+import os
 import random
-import statistics
-import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -83,9 +117,9 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 
-# H100 SXM, NVIDIA's data sheet: HBM rate and the f32 rate outside the
-# tensor cores (the kernel's arithmetic is f32 on the CUDA cores)
-HBM_BYTES_PER_S = 3.35e12
+# H100 SXM, NVIDIA's data sheet: the f32 rate outside the tensor cores
+# (the kernel's arithmetic is f32 on the CUDA cores); the memory rate is
+# magicsoup_tpu_torch.performance.HBM_BYTES_PER_S
 F32_FLOP_PER_S = 67e12
 
 N_CELLS = 10_000
@@ -103,6 +137,28 @@ STEPPER_STEPS = 120
 STEPPER_WARMUP = 3
 FLEET_WORLDS = 4
 FLEET_STEPS = 40
+#: the digests' shapes: K1 at (q, p, s), K2 at (K2_WORLDS, rows, p, s)
+DIGEST_K1 = (10240, 32, 28)
+DIGEST_K2_ROWS = 16384
+#: the sha256 of K1's and K2's output at those shapes: the bits of the
+#: integrator kernel since its body moved into csrc/integrate_body.cuh,
+#: equal to those of the source before the move; a change of the kernel
+#: that changes them must say so here
+DIGESTS = {
+    "k1": "147a9114359d46602e8e7767eab036b108e7c2d7bb33b155ee12e2b6c591b09d",
+    "k2": "75a4199feb8299f8e94a5be68c4e85600e258ff14a403d8fa67e6ba632b52f1a",
+}
+#: the ladder's shapes: the JAX ladder's defaults and the workload's
+LADDER_SHAPES = ((256, 8, 12), (10240, 32, 28))
+#: the microbenchmark's points
+BENCH_POINTS = (("cuda", 1), ("cuda", 4), ("torch-fast", 1))
+#: det mode on the card: scripts/bitrepro.py's defaults
+DET_STEPS = 20
+DET_CELLS = 500
+DET_MAP = 64
+DET_GENOME = 300
+DET_SEED = 7
+DET_DISPATCHES = 10
 #: where the real-state checks save their worst tiles (``--dump DIR``)
 DUMP_DIR = None
 STEPPER_KW = dict(
@@ -116,17 +172,6 @@ STEPPER_KW = dict(
 )
 
 
-def _card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True,
-        text=True,
-        timeout=60,
-        check=True,
-    )
-    return out.stdout.strip().splitlines()[0]
-
-
 def _environment():
     import torch
 
@@ -135,25 +180,28 @@ def _environment():
     if not (ROOT / "magicsoup_tpu_torch" / "__init__.py").exists():
         sys.exit(f"chip_smoke: no magicsoup_tpu_torch package beside {__file__}")
     sys.path.insert(0, str(ROOT))
+    from magicsoup_tpu_torch.performance import card_line
+
     print(f"torch {torch.__version__}  python {sys.version.split()[0]}")
     print(f"cuda {torch.version.cuda}  device {torch.cuda.get_device_name(0)}")
-    print(f"card {_card_line()}")
+    print(f"card {card_line()}")
     return torch
 
 
 def _build():
     from magicsoup_tpu_torch.native import engine
-    from magicsoup_tpu_torch.ops import cuda_integrate
+    from magicsoup_tpu_torch.ops import cuda_bisect, cuda_integrate
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=2) as pool:
-        kernel = pool.submit(cuda_integrate.build)
+    with ThreadPoolExecutor(max_workers=3) as pool:
+        kernels = [pool.submit(cuda_integrate.build), pool.submit(cuda_bisect.build)]
         genome = pool.submit(engine.get_lib)
-        lib_path = kernel.result()
+        lib_paths = [k.result() for k in kernels]
         if genome.result() is None:
             raise RuntimeError("the genome engine did not build")
-    print(f"build {time.perf_counter() - t0:.3f} s  ({lib_path.name})")
-    print(Path(f"{lib_path}.log").read_text().strip())
+    print(f"build {time.perf_counter() - t0:.3f} s  ({', '.join(p.name for p in lib_paths)})")
+    for lib_path in lib_paths:
+        print(Path(f"{lib_path}.log").read_text().strip())
 
 
 def _bisect_inputs(torch, c: int, p: int, s: int, seed: int):
@@ -189,25 +237,11 @@ def _bisect_inputs(torch, c: int, p: int, s: int, seed: int):
     return torch.from_numpy(X).cuda(), params_from_numpy(d, "cuda")
 
 
-def _median_ms(torch, fn, reps: int) -> float:
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
-
-
 def _kernel_check(torch, q: int, p: int, s: int) -> dict:
     import numpy as np
 
     from magicsoup_tpu_torch.ops import cuda_integrate as ci
+    from magicsoup_tpu_torch.performance import cuda_median_ms
     from magicsoup_tpu_torch.ops.integrate import CellParams
 
     X, params = _bisect_inputs(torch, q, p, s, seed=0)
@@ -225,9 +259,9 @@ def _kernel_check(torch, q: int, p: int, s: int) -> dict:
     if not np.array_equal(out_np[8:16], X[0, 8:16].cpu().numpy()):
         raise AssertionError("dead rows changed")
 
-    ms = _median_ms(torch, lambda: ci.integrate_signals_cuda(X, params), KERNEL_REPS)
-    plain_ms = _median_ms(
-        torch, lambda: ci.integrate_signals_tiled(X, params, ci.TILE_C), PLAIN_REPS
+    ms = cuda_median_ms(lambda: ci.integrate_signals_cuda(X, params), KERNEL_REPS)
+    plain_ms = cuda_median_ms(
+        lambda: ci.integrate_signals_tiled(X, params, ci.TILE_C), PLAIN_REPS
     )
     return {
         "name": "integrate_signals",
@@ -465,6 +499,8 @@ def _bound(n_rows: int, p: int, s: int) -> dict:
     the regulation sum, the negative guard's sum and min, the first
     signal update, >= 13 f32 operations; the correction steps come on
     top)."""
+    from magicsoup_tpu_torch.performance import HBM_BYTES_PER_S
+
     n_bytes = n_rows * (16 * p + 12 * p * s + 8 * s)
     bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
     ops_ms = 3 * 13 * n_rows * p * s / F32_FLOP_PER_S * 1e3
@@ -492,6 +528,7 @@ def _k2_seeded(torch, X_stack, stack, q: int) -> dict:
     import numpy as np
 
     from magicsoup_tpu_torch.ops import cuda_integrate as ci
+    from magicsoup_tpu_torch.performance import cuda_median_ms
     from magicsoup_tpu_torch.ops.integrate import CellParams
 
     B, rows, s = X_stack.shape
@@ -514,9 +551,9 @@ def _k2_seeded(torch, X_stack, stack, q: int) -> dict:
         )
         if not torch.equal(solo[0], out[w]):
             raise AssertionError(f"K2 at q {q}: world {w} differs from its B = 1 launch")
-    ms = _median_ms(torch, lambda: ci.integrate_signals_cuda(X, params), KERNEL_REPS)
-    plain_ms = _median_ms(
-        torch, lambda: ci.integrate_signals_tiled(X, params, ci.TILE_C), PLAIN_REPS
+    ms = cuda_median_ms(lambda: ci.integrate_signals_cuda(X, params), KERNEL_REPS)
+    plain_ms = cuda_median_ms(
+        lambda: ci.integrate_signals_tiled(X, params, ci.TILE_C), PLAIN_REPS
     )
     return {
         "shape": {"B": B, "q": q, "world_stride": rows, "p": p, "s": s},
@@ -536,13 +573,14 @@ def _k2_real_state(torch, inputs, label: str) -> dict:
     nonzero Vmax), the kernel's median time over 25 launches on them and
     the plain version's."""
     from magicsoup_tpu_torch.ops import cuda_integrate as ci
+    from magicsoup_tpu_torch.performance import cuda_median_ms
 
     X, params = inputs
     active = params.Vmax.ne(0).any(-1)
     got = _real_state_check(torch, X, params, active, label)
-    got["ms"] = _median_ms(torch, lambda: ci.integrate_signals_cuda(X, params), KERNEL_REPS)
-    got["plain_ms"] = _median_ms(
-        torch, lambda: ci.integrate_signals_tiled(X, params, ci.TILE_C), PLAIN_REPS
+    got["ms"] = cuda_median_ms(lambda: ci.integrate_signals_cuda(X, params), KERNEL_REPS)
+    got["plain_ms"] = cuda_median_ms(
+        lambda: ci.integrate_signals_tiled(X, params, ci.TILE_C), PLAIN_REPS
     )
     got.update(_bound(X.shape[0] * X.shape[1], params.Ke.shape[-1], X.shape[2]))
     return got
@@ -804,6 +842,229 @@ def _fleet_run(torch, taps: _Taps) -> dict:
     }
 
 
+def _sha256(t) -> str:
+    return hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest()
+
+
+def _digests(torch) -> dict:
+    """The sha256 of K1's output on the seeded inputs at DIGEST_K1 and of
+    K2's on K2_WORLDS stacked worlds of DIGEST_K2_ROWS rows; each must
+    equal its entry of DIGESTS."""
+    from magicsoup_tpu_torch.ops import cuda_integrate as ci
+    from magicsoup_tpu_torch.ops.integrate import CellParams
+
+    q, p, s = DIGEST_K1
+    X, params = _bisect_inputs(torch, q, p, s, seed=0)
+    X_stack, stack = _k2_stack(torch, DIGEST_K2_ROWS, p, s)
+    runs = {
+        "k1": ({"q": q, "p": p, "s": s}, X[None], CellParams(*(t[None] for t in params))),
+        "k2": ({"B": K2_WORLDS, "q": DIGEST_K2_ROWS, "p": p, "s": s}, X_stack, stack),
+    }
+    out = {}
+    for key, (shape, X_, params_) in runs.items():
+        got = ci.integrate_signals_cuda(X_, params_)
+        torch.cuda.synchronize()
+        out[key] = {"shape": shape, "sha256": _sha256(got)}
+    wrong = {key: v["sha256"] for key, v in out.items() if v["sha256"] != DIGESTS[key]}
+    if wrong:
+        raise AssertionError(f"integrator output digests changed: {wrong}, want {DIGESTS}")
+    return out
+
+
+def _ladder(torch) -> dict:
+    """K3 at LADDER_SHAPES: every rung must hold its plain version; the
+    ladder kernels' launch count over the two runs."""
+    from magicsoup_tpu_torch.ops import cuda_bisect as cb
+    from magicsoup_tpu_torch.performance.kernel_bisect import run_ladder
+
+    runs = {}
+    cb.launches = 0
+    for c, p, s in LADDER_SHAPES:
+        rows, ok = run_ladder(c, p, s, device="cuda")
+        if not ok:
+            raise AssertionError(f"ladder at {c} x {p} x {s}: {[r for r in rows if not r['ok']]}")
+        runs[f"{c}x{p}x{s}"] = rows
+    launches = cb.launches
+    if launches == 0:
+        raise AssertionError("the ladder launched no kernel")
+    return {"runs": runs, "launches": launches}
+
+
+def _microbench(torch) -> list:
+    """The integrator microbenchmark at its defaults at BENCH_POINTS; one
+    kernel launch per chained cuda step."""
+    from magicsoup_tpu_torch.ops import cuda_integrate as ci
+    from magicsoup_tpu_torch.performance import integrator_bench as ib
+
+    chain, reps = 10, 7
+    ci.launches = 0
+    rows, ok = ib.bench(16384, 32, 28, 0.75, chain, reps, list(BENCH_POINTS), "cuda")
+    if not ok:
+        raise AssertionError("a microbenchmark point failed")
+    # per cuda point: the checked chain, the timer's warm-up and reps chains
+    n_cuda = sum(1 for name, _ in BENCH_POINTS if name == "cuda")
+    if ci.launches != n_cuda * (reps + 2) * chain:
+        raise AssertionError(f"microbenchmark: {ci.launches} launches for {n_cuda} cuda points")
+    return rows
+
+
+def _state_arrays(world) -> dict:
+    """Every piece of a world's state, as scripts/bitrepro.py hashes it."""
+    import numpy as np
+
+    n = world.n_cells
+    out = {
+        "molecule_map": world.molecule_map.cpu().numpy(),
+        "cell_molecules": np.asarray(world.cell_molecules)[:n],
+        "positions": np.asarray(world.cell_positions),
+        "lifetimes": np.asarray(world.cell_lifetimes),
+        "divisions": np.asarray(world.cell_divisions),
+        "genomes": np.frombuffer("\n".join(world.cell_genomes).encode(), dtype=np.uint8),
+    }
+    for name, t in world.kinetics.params._asdict().items():
+        out[f"params.{name}"] = t[:n].cpu().numpy()
+    return out
+
+
+def _first_divergence(a: dict, b: dict) -> dict | None:
+    """The first tensor whose bytes differ between two state snapshots,
+    with its largest absolute and ULP difference."""
+    import numpy as np
+
+    for key in a:
+        x, y = a[key], b[key]
+        if x.shape == y.shape and x.tobytes() == y.tobytes():
+            continue
+        out = {"tensor": key}
+        if x.shape != y.shape:
+            out["shapes"] = [list(x.shape), list(y.shape)]
+            return out
+        out["n_diff"] = int((x != y).sum())
+        out["max_abs"] = float(np.abs(x.astype(np.float64) - y.astype(np.float64)).max())
+        if x.dtype == np.float32:
+            xi, yi = x.view(np.int32).astype(np.int64), y.view(np.int32).astype(np.int64)
+            out["max_ulp"] = int(np.abs(xi - yi).max())
+        return out
+    return None
+
+
+@contextlib.contextmanager
+def _no_flush_bit(torch):
+    """Scope in which det work on the CPU runs as it does but without the
+    thread's flush-to-zero bits: ``flush_denormal`` still runs it on one
+    thread, and its ``torch.set_flush_denormal`` calls do nothing."""
+    saved = torch.set_flush_denormal
+    torch.set_flush_denormal = lambda mode: False
+    try:
+        yield
+    finally:
+        torch.set_flush_denormal = saved
+
+
+def _det_on_card(torch) -> dict:
+    """Deterministic mode on the card against the CPU (phase 13); the
+    workload also runs on the CPU without the flush bit, and where that
+    run's bits first differ from the flushed CPU run's is recorded (the
+    card keeps subnormals as the CPU does without the bit)."""
+    import magicsoup_tpu_torch as mt
+    from magicsoup_tpu_torch.examples.wood_ljungdahl import CHEMISTRY
+    from magicsoup_tpu_torch.workload import sim_step
+
+    saved = os.environ.get("MAGICSOUP_TPU_DETERMINISTIC")
+    os.environ["MAGICSOUP_TPU_DETERMINISTIC"] = "1"
+    try:
+        t0 = time.perf_counter()
+        atp = CHEMISTRY.molname_2_idx["ATP"]
+        worlds = {d: mt.World(chemistry=CHEMISTRY, map_size=DET_MAP, seed=DET_SEED,
+                              device=d.split("-")[0])
+                  for d in ("cpu", "cuda", "cpu-no-flush")}
+        rngs = {d: random.Random(DET_SEED) for d in worlds}
+        if {w.integrator for w in worlds.values()} != {"torch-det"}:
+            raise AssertionError("det worlds do not run the det integrator")
+        n_cells, no_flush_div = [], None
+        for step in range(DET_STEPS):
+            for d, w in worlds.items():
+                scope = _no_flush_bit(torch) if d == "cpu-no-flush" else contextlib.nullcontext()
+                with scope:
+                    sim_step(w, rngs[d], n_cells=DET_CELLS, genome_size=DET_GENOME,
+                             atp_idx=atp, sync=True)
+            states = {d: _state_arrays(w) for d, w in worlds.items()}
+            div = _first_divergence(states["cpu"], states["cuda"])
+            if div is not None:
+                raise AssertionError(f"det mode: card and CPU diverge at step {step}: {div}")
+            if no_flush_div is None:
+                no_flush_div = _first_divergence(states["cpu"], states["cpu-no-flush"])
+                if no_flush_div is not None:
+                    no_flush_div["step"] = step
+                    del worlds["cpu-no-flush"]
+            n_cells.append(worlds["cuda"].n_cells)
+        classic_s = time.perf_counter() - t0
+
+        # the stepper, with the arguments of tests/test_torch_stepper.py
+        kw = dict(mol_name="ATP", kill_below=1.0, divide_above=3.0, divide_cost=1.0,
+                  target_cells=40, genome_size=300, lag=2, max_divisions=64,
+                  spawn_block=16, push_block=16, p_mutation=1e-3, p_recombination=1e-4,
+                  megastep=1)
+        states, stats = [], []
+        for d in ("cpu", "cuda"):
+            w = mt.World(chemistry=CHEMISTRY, map_size=16, seed=3, device=d)
+            rng = random.Random(3)
+            w.spawn_cells([mt.random_genome(s=300, rng=rng) for _ in range(20)])
+            w._ensure_capacity(100)
+            st = mt.PipelinedStepper(w, **kw)
+            for _ in range(DET_DISPATCHES):
+                st.step()
+            st.flush()
+            states.append(_state_arrays(w))
+            stats.append({k: v for k, v in st.stats.items() if not k.endswith("_ms")})
+        div = _first_divergence(*states)
+        if div is not None or stats[0] != stats[1]:
+            raise AssertionError(f"det stepper: card and CPU diverge: {div}, stats {stats}")
+    finally:
+        if saved is None:
+            os.environ.pop("MAGICSOUP_TPU_DETERMINISTIC")
+        else:
+            os.environ["MAGICSOUP_TPU_DETERMINISTIC"] = saved
+    return {
+        "classic": {"steps": DET_STEPS, "cells": DET_CELLS, "map_size": DET_MAP,
+                    "seed": DET_SEED, "n_cells": n_cells, "tensors": sorted(_state_arrays(worlds["cuda"])),
+                    "bit_equal_every_step": True, "wall_s": classic_s,
+                    "cpu_without_flush_bit": {"bit_equal_every_step": no_flush_div is None,
+                                              "first_divergence": no_flush_div}},
+        "stepper_K1": {"dispatches": DET_DISPATCHES, "steps": stats[1]["steps"],
+                       "n_cells": int(states[1]["positions"].shape[0]),
+                       "bit_equal_after_flush": True},
+    }
+
+
+def _k3_entry(ladder: dict) -> dict:
+    """The ladder's entry of the kernels line: per rung at each shape;
+    its top-level times are the sums over the kernel rungs (1-11) at the
+    workload's shape."""
+    c, p, s = LADDER_SHAPES[-1]
+    work = [r for r in ladder["runs"][f"{c}x{p}x{s}"] if r["rung"] <= 11]
+    keys = ("name", "ms", "plain_ms", "bytes", "bound_ms", "library_ms",
+            "max_abs_err", "max_rel_err", "q99_rel_err", "bit_equal_to_integrator",
+            "worlds_bit_equal_to_solo", "ok")
+    return {
+        "name": "kernel_bisect",
+        "route": "cuda",
+        "source": "magicsoup_tpu_torch/csrc/bisect.cu",
+        "replaces": "performance/pallas_bisect.py:98",
+        "shape": [{"c": c, "p": p, "s": s} for c, p, s in LADDER_SHAPES],
+        "rungs": {shape: [{k: r[k] for k in ("rung",) + keys if k in r} for r in rows]
+                  for shape, rows in ladder["runs"].items()},
+        "launches": ladder["launches"],
+        "max_abs_err": max(r["max_abs_err"] for rows in ladder["runs"].values() for r in rows),
+        "ms": sum(r["ms"] for r in work),
+        "plain_ms": sum(r["plain_ms"] for r in work),
+        "bound_ms": sum(r["bound_ms"] for r in work),
+        "bound_by": "bytes",
+        "library_ms": None,
+        "ok": True,
+    }
+
+
 def main() -> None:
     global DUMP_DIR
     import argparse
@@ -813,9 +1074,14 @@ def main() -> None:
         "--dump", metavar="DIR", type=Path,
         help="save the worst tiles of each real-state kernel check to DIR",
     )
-    DUMP_DIR = parser.parse_args().dump
+    args = parser.parse_args()
+    DUMP_DIR = args.dump
     torch = _environment()
     _build()
+    digests = _digests(torch)
+    print(json.dumps({"digests": digests}))
+    ladder = _ladder(torch)
+    print(json.dumps({"kernel_bisect": ladder}))
 
     world, spawn_s = _workload(torch)
     p, s = world.kinetics.max_proteins, 2 * world.n_molecules
@@ -827,6 +1093,7 @@ def main() -> None:
     torch.cuda.reset_peak_memory_stats()
     work = _run_steps(torch, world)
     kernel["launches"] = work["launches"]
+    kernel["sha256"] = digests["k1"]
     kernel["ok"] = True
     work["spawn_s"] = spawn_s
     work["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
@@ -880,11 +1147,19 @@ def main() -> None:
         "bound_ms": main_shape["bound_ms"],
         "bound_by": main_shape["bound_by"],
         "library_ms": None,
+        "sha256": digests["k2"],
         "ok": True,
     }
 
-    card = _card_line()
-    print(json.dumps({"kernels": [kernel, k2]}))
+    bench = _microbench(torch)
+    print(json.dumps({"integrator_bench": bench}))
+    det = _det_on_card(torch)
+    print(json.dumps({"det_on_card": det}))
+
+    from magicsoup_tpu_torch.performance import card_line
+
+    card = card_line()
+    print(json.dumps({"kernels": [kernel, k2, _k3_entry(ladder)]}))
     print(card)
     print(json.dumps({
         "ok": True,

@@ -1,21 +1,25 @@
 """
-Build-at-first-use for the port's two native libraries: the host genome
-engine (``native/src/genome.cpp``, g++) and the integrator kernel
-(``csrc/integrate.cu``, nvcc).  Both are plain shared libraries with a C
-interface, loaded with ctypes.
+Build-at-first-use for the port's native libraries: the host genome
+engine (``native/src/genome.cpp``, g++) and the CUDA kernels
+(``csrc/integrate.cu``, ``csrc/bisect.cu``, nvcc).  All are plain shared
+libraries with a C interface, loaded with ctypes.
 
-Each library is named after a hash of its source and of the compiler
-command, so an edit rebuilds it and an unchanged source is built once.
-The build writes a process-unique temp file and renames it into place:
-several test workers may build at once, and a reader never sees a
-half-written library.
+Each library is named after a hash of its source, of every file the
+source includes with ``#include "..."`` (found beside the including file,
+followed recursively), and of the compiler command, so an edit to the
+source or to a header it includes rebuilds it, and an unchanged source
+is built once.  The build writes a process-unique temp file and renames
+it into place: several test workers may build at once, and a reader
+never sees a half-written library.
 """
 import hashlib
 import os
+import re
 import subprocess
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
 
 
 def build_dir() -> Path:
@@ -24,14 +28,42 @@ def build_dir() -> Path:
     return _PKG.parent / "build" / "magicsoup_tpu_torch"
 
 
+def source_closure(src: Path) -> list[Path]:
+    """``src`` and every file it includes with ``#include "..."``,
+    resolved beside the including file and followed recursively; quoted
+    includes that name no such file (a system header) are left out."""
+    seen: dict[Path, None] = {}
+    todo = [Path(src).resolve()]
+    while todo:
+        path = todo.pop()
+        if path in seen:
+            continue
+        seen[path] = None
+        for name in _INCLUDE.findall(path.read_bytes()):
+            dep = (path.parent / name.decode()).resolve()
+            if dep.is_file():
+                todo.append(dep)
+    return list(seen)
+
+
+def library_path(name: str, src: Path, cmd: list[str]) -> Path:
+    """``build_dir()/<name>-<hash>.so``: the hash covers the bytes of
+    :func:`source_closure` and the compiler command."""
+    src = Path(src).resolve()
+    digest = hashlib.sha256(" ".join(cmd).encode())
+    for path in source_closure(src):
+        digest.update(os.path.relpath(path, src.parent).encode() + b"\0")
+        digest.update(path.read_bytes())
+    return build_dir() / f"{name}-{digest.hexdigest()[:16]}.so"
+
+
 def build_shared(name: str, src: Path, cmd: list[str], timeout: int) -> Path:
     """Compile ``src`` with ``cmd + [src, "-o", out]`` into
-    ``build_dir()/<name>-<hash>.so`` unless that file exists; returns its
-    path, with the compiler's output in ``<name>-<hash>.so.log``.  Raises
-    ``RuntimeError`` with the compiler's output on failure."""
+    :func:`library_path` unless that file exists; returns its path, with
+    the compiler's output in ``<library>.log``.  Raises ``RuntimeError``
+    with the compiler's output on failure."""
     src = Path(src)
-    digest = hashlib.sha256(src.read_bytes() + " ".join(cmd).encode())
-    out = build_dir() / f"{name}-{digest.hexdigest()[:16]}.so"
+    out = library_path(name, src, cmd)
     if out.exists():
         return out
     out.parent.mkdir(parents=True, exist_ok=True)

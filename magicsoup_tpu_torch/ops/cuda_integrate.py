@@ -108,7 +108,8 @@ def nvcc() -> str:
 
 
 def build() -> Path:
-    """Build the kernel's shared library (once per source); its path.
+    """Build the kernel's shared library (once per source and the
+    headers it includes); its path.
     The compiler's report (``-Xptxas -v``) is kept beside it as
     ``<library>.log``."""
     return build_shared("libmsintegrate", SRC, [nvcc(), *NVCC_FLAGS], timeout=600)
