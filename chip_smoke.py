@@ -11,7 +11,8 @@ Smoke run of the PyTorch/CUDA port on one CUDA card:
    ``performance/pallas_bisect.py`` draws them, plus the edge cases, under
    the fast contract (finite and >= 0; 99th-percentile relative error
    < 1e-4; maximum < 0.15); then the kernel's median time over 25
-   launches (CUDA events), the plain version's, and the byte bound;
+   launches (CUDA events), the plain version's, the host's time per
+   launch through the wrapper, and the bound (:func:`_bound`);
 4. K1 on the world's state: the same comparison on the signals and
    parameters that the first workload step hands the integrator, under
    the real-state contract (finite and >= 0; at least 85% of cells within
@@ -65,7 +66,12 @@ Smoke run of the PyTorch/CUDA port on one CUDA card:
 10. digests: the sha256 of K1's output on the seeded inputs of 3 at
     q = 10240 (p 32, s 28) and of K2's at 4 x 16384 rows, each equal to
     its committed value (``DIGESTS``), so a change of the kernel's source
-    keeps its bits;
+    keeps its bits; then the shape sweep: the kernel against its plain
+    version on seeded inputs at every (p, s) of ``SWEEP_SHAPES`` (10240
+    cells; the fast contract, dead rows unchanged), with the route that
+    the launch plan took, its time and its byte bound, and a B = 3 stack
+    with a world stride above its rows, each world bit-equal to its own
+    launch;
 11. K3, the integrator's lowering ladder
     (``magicsoup_tpu_torch.performance.kernel_bisect``): every rung (1-11
     the kernels of ``csrc/bisect.cu``, 12-13 the production entry) against
@@ -96,14 +102,23 @@ Smoke run of the PyTorch/CUDA port on one CUDA card:
 
 Phases 10 and 11 run right after the build, 12 and 13 after 9.
 
+With ``--parent DIR`` the run also builds an earlier version of the
+integrator kernel from DIR (its ``magicsoup_tpu_torch/ops/
+cuda_integrate.py`` and ``csrc/integrate.cu`` with the header it
+includes, as ``git show REV:...`` writes them) and, in phases 3, 4, 8 and
+9, runs it beside this one on the same inputs: its error against the
+plain version, its time (the two kernels timed in turns: earlier, this,
+this, earlier) and its host time per launch.  Nothing of the earlier
+version is held to a contract.
+
 It prints a ``{"workload": ...}`` line, a ``{"stepper": ...}`` line, a
 ``{"fleet": ...}`` line, the flags per window, the seeded and real-state
-K2 lines, the digests, ladder, microbenchmark and det lines, a
+K2 lines, the digests, sweep, ladder, microbenchmark and det lines, a
 ``{"kernels": [...]}`` line, the card's name and power limit, and as its
 last line ``{"ok": true, "device": {...}}``.  Any failure raises, and the
 run exits non-zero without that last line.  It needs one card.
 
-    python3 chip_smoke.py [--dump DIR]
+    python3 chip_smoke.py [--dump DIR] [--parent DIR]
 """
 import contextlib
 import hashlib
@@ -140,14 +155,30 @@ FLEET_STEPS = 40
 #: the digests' shapes: K1 at (q, p, s), K2 at (K2_WORLDS, rows, p, s)
 DIGEST_K1 = (10240, 32, 28)
 DIGEST_K2_ROWS = 16384
-#: the sha256 of K1's and K2's output at those shapes: the bits of the
-#: integrator kernel since its body moved into csrc/integrate_body.cuh,
-#: equal to those of the source before the move; a change of the kernel
-#: that changes them must say so here
+#: the sha256 of K1's and K2's output at those shapes.  The kernel with a
+#: cell's proteins in parallel keeps the first version's bits: each lane
+#: sums its protein's row in the order of that version's warp butterfly
+#: (csrc/integrate_body.cuh::tree_sum), every other sum keeps its order,
+#: and where the parameters live (the launch plan's route) changes no
+#: bit.  A left-to-right order in each lane gave other bits (K1
+#: a105d106...65ae, K2 f9b4cef4...be65) and fewer cells within 1e-4 of the
+#: plain version on real state.  A change of the kernel that changes
+#: these must say so here
 DIGESTS = {
     "k1": "147a9114359d46602e8e7767eab036b108e7c2d7bb33b155ee12e2b6c591b09d",
     "k2": "75a4199feb8299f8e94a5be68c4e85600e258ff14a403d8fa67e6ba632b52f1a",
 }
+#: the shape sweep: (p, s) the package reaches (Wood-Ljungdahl's s 28,
+#: the CO2-fixing chemistry's s 82; p doubling with genome length), at
+#: SWEEP_CELLS cells, and the B = 3 stack's worlds, rows and stride
+SWEEP_SHAPES = ((8, 20), (32, 28), (64, 28), (32, 82), (64, 82))
+SWEEP_CELLS = 10240
+SWEEP_STACK = (3, 1024, 1280)
+#: host time per launch: launches enqueued back to back
+HOST_LAUNCHES = 200
+#: an earlier version of the integrator kernel, run beside this one
+#: (``--parent DIR``)
+PARENT = None
 #: the ladder's shapes: the JAX ladder's defaults and the workload's
 LADDER_SHAPES = ((256, 8, 12), (10240, 32, 28))
 #: the microbenchmark's points
@@ -193,8 +224,9 @@ def _build():
     from magicsoup_tpu_torch.ops import cuda_bisect, cuda_integrate
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=3) as pool:
-        kernels = [pool.submit(cuda_integrate.build), pool.submit(cuda_bisect.build)]
+    builds = [cuda_integrate.build, cuda_bisect.build] + ([PARENT.build] if PARENT else [])
+    with ThreadPoolExecutor(max_workers=len(builds) + 1) as pool:
+        kernels = [pool.submit(b) for b in builds]
         genome = pool.submit(engine.get_lib)
         lib_paths = [k.result() for k in kernels]
         if genome.result() is None:
@@ -202,6 +234,72 @@ def _build():
     print(f"build {time.perf_counter() - t0:.3f} s  ({', '.join(p.name for p in lib_paths)})")
     for lib_path in lib_paths:
         print(Path(f"{lib_path}.log").read_text().strip())
+
+
+def _load_parent(root: Path):
+    """The earlier integrator's wrapper module from ``root`` (its sources
+    beside it as in the package), under its own name: its library is
+    named after its own sources, its launch count is its own."""
+    import importlib.util
+
+    path = root / "magicsoup_tpu_torch" / "ops" / "cuda_integrate.py"
+    for need in (path, path.parents[1] / "csrc" / "integrate.cu"):
+        if not need.is_file():
+            sys.exit(f"chip_smoke: --parent {root} has no {need.relative_to(root)}")
+    spec = importlib.util.spec_from_file_location("parent_cuda_integrate", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _fast_errors(out, ref) -> tuple[float, float, float]:
+    """q99 and max relative error, and max absolute error, of ``out``
+    against ``ref`` (numpy)."""
+    import numpy as np
+
+    diff = np.abs(out - ref)
+    rel = diff / (np.abs(ref) + 1e-6)
+    return float(np.quantile(rel, 0.99)), float(rel.max()), float(diff.max())
+
+
+def _host_us(torch, fn) -> float:
+    """Host microseconds per call of ``fn`` (one launch), over
+    HOST_LAUNCHES calls enqueued back to back, ending before the
+    synchronize."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(HOST_LAUNCHES):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / HOST_LAUNCHES * 1e6
+
+
+def _beside_parent(torch, X, params, ref_np, reps: int = KERNEL_REPS) -> tuple[float, dict]:
+    """This kernel's median time on (X, params) and, with ``--parent``,
+    the earlier kernel's errors against ``ref_np``, its time and host time
+    per launch, both kernels timed in turns (earlier, this, this,
+    earlier)."""
+    from magicsoup_tpu_torch.ops import cuda_integrate as ci
+    from magicsoup_tpu_torch.performance import cuda_median_ms
+
+    new = lambda: ci.integrate_signals_cuda(X, params)  # noqa: E731
+    if PARENT is None:
+        return cuda_median_ms(new, reps), {}
+    old = lambda: PARENT.integrate_signals_cuda(X, params)  # noqa: E731
+    out = old()
+    torch.cuda.synchronize()
+    q99, rel_max, abs_max = _fast_errors(out.cpu().numpy(), ref_np)
+    times = [cuda_median_ms(f, reps) for f in (old, new, new, old)]
+    return (times[1] + times[2]) / 2, {
+        "ms": (times[0] + times[3]) / 2,
+        "ms_in_turns": times,
+        "q99_rel_err": q99,
+        "max_rel_err": rel_max,
+        "max_abs_err": abs_max,
+        "host_us_per_launch": _host_us(torch, old),
+    }
 
 
 def _bisect_inputs(torch, c: int, p: int, s: int, seed: int):
@@ -252,14 +350,13 @@ def _kernel_check(torch, q: int, p: int, s: int) -> dict:
     out_np, ref_np = out.cpu().numpy(), ref.cpu().numpy()
     if not (np.isfinite(out_np).all() and (out_np >= 0).all()):
         raise AssertionError("kernel output is not finite and >= 0")
-    rel = np.abs(out_np - ref_np) / (np.abs(ref_np) + 1e-6)
-    q99, rel_max = float(np.quantile(rel, 0.99)), float(rel.max())
+    q99, rel_max, abs_max = _fast_errors(out_np, ref_np)
     if not (q99 < 1e-4 and rel_max < 0.15):
         raise AssertionError(f"kernel vs plain: q99 {q99}, max {rel_max}")
     if not np.array_equal(out_np[8:16], X[0, 8:16].cpu().numpy()):
         raise AssertionError("dead rows changed")
 
-    ms = cuda_median_ms(lambda: ci.integrate_signals_cuda(X, params), KERNEL_REPS)
+    ms, parent = _beside_parent(torch, X, params, ref_np)
     plain_ms = cuda_median_ms(
         lambda: ci.integrate_signals_tiled(X, params, ci.TILE_C), PLAIN_REPS
     )
@@ -269,13 +366,16 @@ def _kernel_check(torch, q: int, p: int, s: int) -> dict:
         "source": "magicsoup_tpu_torch/csrc/integrate.cu",
         "replaces": "magicsoup_tpu/ops/pallas_integrate.py:266",
         "shape": {"q": q, "p": p, "s": s},
-        "seeded_max_abs_err": float(np.abs(out_np - ref_np).max()),
+        "plan": ci.plan(p, s)._asdict(),
+        "seeded_max_abs_err": abs_max,
         "seeded_max_rel_err": rel_max,
         "seeded_q99_rel_err": q99,
         "ms": ms,
         "plain_ms": plain_ms,
-        **_bound(q, p, s),
+        "host_us_per_launch": _host_us(torch, lambda: ci.integrate_signals_cuda(X, params)),
+        **_bound(torch, X, params),
         "library_ms": None,
+        **({"parent": parent} if parent else {}),
     }
 
 
@@ -305,6 +405,45 @@ def _dump_worst(X, params, out, ref, cells, norm, label: str, n: int = 4) -> Non
     np.savez(DUMP_DIR / f"{slug}.npz", **arrays)
 
 
+def _cell_shares(X, params, active, out, ref) -> tuple[dict, object, object]:
+    """The per-cell errors of ``out`` against the plain version ``ref`` on
+    the ``active`` rows of ``X`` (B, q, s), as the real-state contract
+    reads them (:func:`_real_state_check`), a cell beyond 0.25 of the
+    plain version held to the det integrator on its tile on the CPU; and
+    each active cell's error relative to its largest value, with its
+    (world, row)."""
+    import numpy as np
+
+    from magicsoup_tpu_torch.ops.cuda_integrate import TILE_C
+    from magicsoup_tpu_torch.ops.integrate import CellParams, integrate_signals
+
+    cells = active.nonzero().cpu().numpy()
+    out_np, ref_np = out[active].cpu().numpy(), ref[active].cpu().numpy()
+    rel = np.abs(out_np - ref_np) / (np.abs(ref_np) + 1e-6)
+    scale = np.maximum(np.abs(ref_np).max(axis=1), 1e-6)
+    norm = np.abs(out_np - ref_np).max(axis=1) / scale
+    far = np.nonzero(norm >= 0.25)[0]
+    det_err = []
+    for i in far:
+        w, row = (int(v) for v in cells[i])
+        rows = slice(row - row % TILE_C, row - row % TILE_C + TILE_C)
+        det = integrate_signals(
+            X[w, rows].cpu(), CellParams(*(t[w, rows].cpu() for t in params)), det=True
+        )[row % TILE_C].numpy()
+        det_err.append(float(np.abs(out_np[i] - det).max() / max(np.abs(det).max(), 1e-6)))
+    return {
+        "finite_nonneg": bool(np.isfinite(out_np).all() and (out_np >= 0).all()),
+        "max_abs_err": float(np.abs(out_np - ref_np).max()),
+        "cells_within_1e-4": float((rel.max(axis=1) < 1e-4).mean()),
+        "cells_within_0.01": float((norm < 0.01).mean()),
+        "max_cell_err": float(norm.max()),
+        "cells_beyond_0.25": [[int(v) for v in cells[i]] for i in far],
+        "their_err_vs_det": det_err,
+        "q99_rel_err": float(np.quantile(rel, 0.99)),
+        "max_rel_err": float(rel.max()),
+    }, norm, cells
+
+
 def _real_state_check(torch, X, params, active, label: str) -> dict:
     """The kernel against its plain version on state that a main path
     handed it: ``X`` (B, q, s) and its parameters, ``active`` (B, q) the
@@ -316,55 +455,38 @@ def _real_state_check(torch, X, params, active, label: str) -> dict:
     within 0.25 of the branch that the det integrator takes on the CPU on
     its tile of 8 cells (the kernel's early-stop unit), where the det
     integrator is bit-equal to the JAX package's.  The other rows must
-    equal the plain version exactly."""
-    import numpy as np
-
+    equal the plain version exactly.  With ``--parent``, the earlier
+    kernel's shares on the same inputs are recorded beside."""
     from magicsoup_tpu_torch.ops import cuda_integrate as ci
-    from magicsoup_tpu_torch.ops.integrate import CellParams, integrate_signals
 
     out = ci.integrate_signals_cuda(X, params)
     ref = ci.integrate_signals_tiled(X, params, ci.TILE_C)
     if not torch.equal(out[~active], ref[~active]):
         raise AssertionError(f"{label}: inactive rows differ from the plain version")
-    cells = active.nonzero().cpu().numpy()
-    out_np, ref_np = out[active].cpu().numpy(), ref[active].cpu().numpy()
-    if not (np.isfinite(out_np).all() and (out_np >= 0).all()):
+    got, norm, cells = _cell_shares(X, params, active, out, ref)
+    if not got.pop("finite_nonneg"):
         raise AssertionError(f"{label}: kernel output is not finite and >= 0")
-    rel = np.abs(out_np - ref_np) / (np.abs(ref_np) + 1e-6)
-    within = float((rel.max(axis=1) < 1e-4).mean())
-    scale = np.maximum(np.abs(ref_np).max(axis=1), 1e-6)
-    norm = np.abs(out_np - ref_np).max(axis=1) / scale
-    within_1e2 = float((norm < 0.01).mean())
-    far = np.nonzero(norm >= 0.25)[0]
-    det_err = []
-    for i in far:
-        w, row = (int(v) for v in cells[i])
-        rows = slice(row - row % ci.TILE_C, row - row % ci.TILE_C + ci.TILE_C)
-        det = integrate_signals(
-            X[w, rows].cpu(), CellParams(*(t[w, rows].cpu() for t in params)), det=True
-        )[row % ci.TILE_C].numpy()
-        det_err.append(float(np.abs(out_np[i] - det).max() / max(np.abs(det).max(), 1e-6)))
     if DUMP_DIR is not None:
         _dump_worst(X, params, out, ref, cells, norm, label)
-    if not (within >= 0.85 and within_1e2 >= 0.98 and all(e < 0.25 for e in det_err)):
+    if not (got["cells_within_1e-4"] >= 0.85 and got["cells_within_0.01"] >= 0.98
+            and all(e < 0.25 for e in got["their_err_vs_det"])):
         raise AssertionError(
-            f"{label}: {within} of cells within 1e-4,"
-            f" {within_1e2} within 0.01 of their largest value; the cells"
-            f" beyond 0.25 of the plain version are {det_err} from the det one"
+            f"{label}: {got['cells_within_1e-4']} of cells within 1e-4,"
+            f" {got['cells_within_0.01']} within 0.01 of their largest value; the cells"
+            f" beyond 0.25 of the plain version are {got['their_err_vs_det']} from the det one"
         )
     B, q, s = X.shape
-    return {
+    got = {
         "shape": {"B": B, "q": q, "p": params.Ke.shape[-1], "s": s,
                   "world_stride": params.Ke.stride(0) // params.Ke[0, 0].numel()},
         "active_rows": int(active.sum()),
-        "max_abs_err": float(np.abs(out_np - ref_np).max()),
-        "cells_within_1e-4": within,
-        "cells_within_0.01": within_1e2,
-        "max_cell_err": float(norm.max()),
-        "cells_beyond_0.25": [[int(v) for v in cells[i]] for i in far],
-        "their_err_vs_det": det_err,
-        "q99_rel_err": float(np.quantile(rel, 0.99)),
+        **got,
     }
+    if PARENT is not None:
+        got["parent"] = _cell_shares(
+            X, params, active, PARENT.integrate_signals_cuda(X, params), ref
+        )[0]
+    return got
 
 
 def _world_kernel_check(torch, world) -> dict:
@@ -377,15 +499,11 @@ def _world_kernel_check(torch, world) -> dict:
     X, params = X[None], CellParams(*(t[None] for t in params))
     live = torch.arange(X.shape[1], device=X.device)[None] < world.n_cells
     got = _real_state_check(torch, X, params, live, "K1 on the world's state")
+    keys = ("max_abs_err", "cells_within_1e-4", "cells_within_0.01", "max_cell_err",
+            "cells_beyond_0.25", "their_err_vs_det", "q99_rel_err", "parent")
     return {
         "world_shape": {"q": X.shape[1], "n_cells": world.n_cells, "p": params.Ke.shape[-1]},
-        "world_max_abs_err": got["max_abs_err"],
-        "world_cells_within_1e-4": got["cells_within_1e-4"],
-        "world_cells_within_0.01": got["cells_within_0.01"],
-        "world_max_cell_err": got["max_cell_err"],
-        "world_cells_beyond_0.25": got["cells_beyond_0.25"],
-        "world_their_err_vs_det": got["their_err_vs_det"],
-        "world_q99_rel_err": got["q99_rel_err"],
+        **{f"world_{k}": got[k] for k in keys if k in got},
     }
 
 
@@ -491,23 +609,104 @@ def _check_state(world, label: str) -> None:
             raise AssertionError(f"{label}: {name} is not finite and >= 0")
 
 
-def _bound(n_rows: int, p: int, s: int) -> dict:
-    """The least time of one integrator step over ``n_rows`` cells: the
-    larger of the byte time (read X and the nine parameter tensors once,
-    write X1) and the operation time (per trim pass and (cell, protein,
-    signal) the always-run part of the body: the two log-space products,
-    the regulation sum, the negative guard's sum and min, the first
-    signal update, >= 13 f32 operations; the correction steps come on
-    top)."""
+def _correction_steps(torch, X, params) -> tuple[float, float]:
+    """The equilibrium correction's work on these inputs: per tile and
+    trim pass, the mean number of quotient evaluations (1-4) and of
+    updates (0-4) that the kernel's body runs before its tile's vote
+    stops it, counted on the plain version's trim passes (X (B, q, s))."""
+    from magicsoup_tpu_torch.ops import integrate as ti
+    from magicsoup_tpu_torch.ops.cuda_integrate import TILE_C
+
+    def tiles(t):
+        return ti.group_rows(t.reshape((-1,) + tuple(t.shape[2:])), TILE_C)
+
+    prm = ti.CellParams(*(tiles(t) for t in params))
+    X0 = tiles(X)
+    evals = updates = 0
+    for trim in ti.TRIM_FACTORS:
+        V = ti._velocities(X0, torch.clamp(prm.Vmax * trim, min=0.0), prm, det=False)
+        W = V * ti._negative_factors(X0, prm.N, V, det=False)
+        X1 = torch.clamp(ti._weighted_dx(X0, prm.N, W, det=False), min=0.0)
+        F = torch.ones_like(V)
+        fwd = V > 0.0
+        live = torch.ones((V.shape[0], 1, 1), dtype=torch.bool, device=V.device)
+        for inc in ti.INCREMENTS:
+            evals += int(live.sum())
+            QKe = ti._quotient(X1, prm, det=False) / prm.Ke
+            low = torch.where(fwd, QKe < ti.LOWER_THRESH, QKe > ti.UPPER_THRESH) & ~(fwd & (F == 1.0))
+            high = torch.where(fwd, QKe > ti.UPPER_THRESH, QKe < ti.LOWER_THRESH) & ~(~fwd & (F == 0.0))
+            live = live & ((low | high) & (V.abs() > 0.1)).any(-1, keepdim=True).any(-2, keepdim=True)
+            updates += int(live.sum())
+            F = torch.where(live & high, F - inc, F)
+            F = torch.clamp(torch.where(live & low, F + inc, F), 0.0, 1.0)
+            X_new = torch.clamp(ti._weighted_dx(X0, prm.N, W * F, det=False), min=0.0)
+            X1 = torch.where(live, X_new, X1)
+        X0 = X1
+    n = X0.shape[0] * len(ti.TRIM_FACTORS)
+    return evals / n, updates / n
+
+
+def _bound(torch, X, params) -> dict:
+    """The least time of one integrator step on ``X`` (B, q, s) and its
+    parameters: the larger of the byte time and the operation time.
+
+    Bytes: read X and the nine parameter tensors once, write X1:
+    ``B q (16p + 12ps + 8s)``, at HBM_BYTES_PER_S.
+
+    Operations: the f32 operations of ``csrc/integrate_body.cuh`` on these
+    inputs, at F32_FLOP_PER_S, counting as one each exact i16 widening
+    (i2f: one add), add, multiply, compare, select and NaN-keeping
+    min/max/clip, and each expf, logf and division too (they take several
+    on the card, so the count is a floor).  Per trim pass (3):
+
+    - per (cell, protein, signal): the velocities' two log-space sums,
+      2 x (widen, multiply, add) = 6; the regulation factor for each
+      nonzero A (``a``, the inputs' share of nonzero A): widen, multiply,
+      min, expf, add, division, NaN test, compare, logf, add = 10; the
+      negative guard's removed amounts (widen, multiply, negate, max,
+      add = 5) and its min (widen, multiply, compare, select, min = 5);
+      the first update (widen, multiply, add = 3); then per quotient
+      evaluation of the correction its two log-space sums (6) and per
+      update its weighted sum (3): ``19 + 10 a + 6 e + 3 u``, with ``e``
+      and ``u`` the evaluations and updates per tile and pass that these
+      inputs run (:func:`_correction_steps`);
+    - per (cell, protein): the velocities' tail (3 expf, 3 divisions, 2
+      Inf tests, 4 selects, 2 Inf scrubs, 3 adds, 4 multiplies or
+      max, a clip) = 21 with the guard's ``W = V m``; per evaluation the
+      quotient's tail (2 expf with their Inf tests and selects, 2
+      divisions, a clip, a NaN test, 9 compares) = 19; per update the
+      factor's (2 adds, a clip, a multiply) = 4: ``21 + 19 e + 4 u``;
+    - per (cell, signal): the velocities' log X (compare, min, logf,
+      select = 4), the guard's factor (division, compare, select = 3), the
+      update's add and clamp (2), per evaluation the log X (4), per update
+      the add and clamp (2): ``9 + 4 e + 2 u``.
+    """
     from magicsoup_tpu_torch.performance import HBM_BYTES_PER_S
 
+    B, q, s = X.shape
+    p = params.Ke.shape[-1]
+    n_rows = B * q
     n_bytes = n_rows * (16 * p + 12 * p * s + 8 * s)
+    a = float(params.A.ne(0).float().mean())
+    e, u = _correction_steps(torch, X, params)
+    per_pass = (
+        p * s * (19 + 10 * a + 6 * e + 3 * u)
+        + p * (21 + 19 * e + 4 * u)
+        + s * (9 + 4 * e + 2 * u)
+    )
+    n_ops = 3 * n_rows * per_pass
     bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = 3 * 13 * n_rows * p * s / F32_FLOP_PER_S * 1e3
+    ops_ms = n_ops / F32_FLOP_PER_S * 1e3
     return {
         "bound_ms": max(bytes_ms, ops_ms),
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         "bytes": n_bytes,
+        "bytes_ms": bytes_ms,
+        "operations": n_ops,
+        "operations_ms": ops_ms,
+        "a_nonzero_share": a,
+        "correction_evals_per_pass": e,
+        "correction_updates_per_pass": u,
     }
 
 
@@ -541,8 +740,7 @@ def _k2_seeded(torch, X_stack, stack, q: int) -> dict:
     out_np, ref_np = out.cpu().numpy(), ref.cpu().numpy()
     if not (np.isfinite(out_np).all() and (out_np >= 0).all()):
         raise AssertionError(f"K2 at q {q}: output is not finite and >= 0")
-    rel = np.abs(out_np - ref_np) / (np.abs(ref_np) + 1e-6)
-    q99, rel_max = float(np.quantile(rel, 0.99)), float(rel.max())
+    q99, rel_max, abs_max = _fast_errors(out_np, ref_np)
     if not (q99 < 1e-4 and rel_max < 0.15):
         raise AssertionError(f"K2 at q {q} vs plain: q99 {q99}, max {rel_max}")
     for w in range(B):
@@ -551,19 +749,20 @@ def _k2_seeded(torch, X_stack, stack, q: int) -> dict:
         )
         if not torch.equal(solo[0], out[w]):
             raise AssertionError(f"K2 at q {q}: world {w} differs from its B = 1 launch")
-    ms = cuda_median_ms(lambda: ci.integrate_signals_cuda(X, params), KERNEL_REPS)
+    ms, parent = _beside_parent(torch, X, params, ref_np)
     plain_ms = cuda_median_ms(
         lambda: ci.integrate_signals_tiled(X, params, ci.TILE_C), PLAIN_REPS
     )
     return {
         "shape": {"B": B, "q": q, "world_stride": rows, "p": p, "s": s},
-        "max_abs_err": float(np.abs(out_np - ref_np).max()),
+        "max_abs_err": abs_max,
         "max_rel_err": rel_max,
         "q99_rel_err": q99,
         "worlds_bit_equal_to_solo_launch": True,
         "ms": ms,
         "plain_ms": plain_ms,
-        **_bound(B * q, p, s),
+        **_bound(torch, X, params),
+        **({"parent": parent} if parent else {}),
     }
 
 
@@ -578,11 +777,21 @@ def _k2_real_state(torch, inputs, label: str) -> dict:
     X, params = inputs
     active = params.Vmax.ne(0).any(-1)
     got = _real_state_check(torch, X, params, active, label)
-    got["ms"] = cuda_median_ms(lambda: ci.integrate_signals_cuda(X, params), KERNEL_REPS)
+    if PARENT is None:
+        got["ms"] = cuda_median_ms(lambda: ci.integrate_signals_cuda(X, params), KERNEL_REPS)
+    else:
+        times = [cuda_median_ms(f, KERNEL_REPS) for f in (
+            lambda: PARENT.integrate_signals_cuda(X, params),
+            lambda: ci.integrate_signals_cuda(X, params),
+            lambda: ci.integrate_signals_cuda(X, params),
+            lambda: PARENT.integrate_signals_cuda(X, params),
+        )]
+        got["ms"] = (times[1] + times[2]) / 2
+        got["parent"].update(ms=(times[0] + times[3]) / 2, ms_in_turns=times)
     got["plain_ms"] = cuda_median_ms(
         lambda: ci.integrate_signals_tiled(X, params, ci.TILE_C), PLAIN_REPS
     )
-    got.update(_bound(X.shape[0] * X.shape[1], params.Ke.shape[-1], X.shape[2]))
+    got.update(_bound(torch, X, params))
     return got
 
 
@@ -871,6 +1080,67 @@ def _digests(torch) -> dict:
     return out
 
 
+def _sweep(torch) -> dict:
+    """The kernel at every (p, s) of SWEEP_SHAPES on seeded inputs of
+    SWEEP_CELLS cells, against its plain version under the fast contract,
+    dead rows unchanged, with the launch plan's route, the kernel's median
+    time and its byte bound; then a B = 3 stack at the largest shape,
+    each world the prefix of a longer block (world stride > rows), each
+    world bit-equal to its own launch."""
+    import numpy as np
+
+    from magicsoup_tpu_torch.ops import cuda_integrate as ci
+    from magicsoup_tpu_torch.ops.integrate import CellParams
+    from magicsoup_tpu_torch.performance import HBM_BYTES_PER_S, cuda_median_ms
+
+    limit = ci.smem_limit(0)
+    shapes = []
+    for p, s in SWEEP_SHAPES:
+        X, params = _bisect_inputs(torch, SWEEP_CELLS, p, s, seed=p + s)
+        X, params = X[None], CellParams(*(t[None] for t in params))
+        out = ci.integrate_signals_cuda(X, params)[0].cpu().numpy()
+        ref = ci.integrate_signals_tiled(X, params, ci.TILE_C)[0].cpu().numpy()
+        q99, rel_max, abs_max = _fast_errors(out, ref)
+        if not (np.isfinite(out).all() and (out >= 0).all() and q99 < 1e-4 and rel_max < 0.15):
+            raise AssertionError(f"sweep at p {p}, s {s}: q99 {q99}, max {rel_max}")
+        if not np.array_equal(out[8:16], X[0, 8:16].cpu().numpy()):
+            raise AssertionError(f"sweep at p {p}, s {s}: dead rows changed")
+        plan = ci.launch_plan(p, s, limit)
+        ms = cuda_median_ms(lambda: ci.integrate_signals_cuda(X, params), KERNEL_REPS)
+        bytes_ms = SWEEP_CELLS * (16 * p + 12 * p * s + 8 * s) / HBM_BYTES_PER_S * 1e3
+        shapes.append({"p": p, "s": s, "c": SWEEP_CELLS, "route": plan.route,
+                       "resident": list(plan.resident), "smem_bytes": plan.smem_bytes,
+                       "ms": ms, "bytes_bound_ms": bytes_ms,
+                       "q99_rel_err": q99, "max_rel_err": rel_max, "max_abs_err": abs_max})
+        print(f"sweep p {p:3d} s {s:3d}: route {plan.route} ({', '.join(plan.resident) or 'none'}"
+              f" resident, {plan.smem_bytes} B), {ms:.4f} ms (bytes {bytes_ms:.4f} ms),"
+              f" q99 {q99:.3g}, max {rel_max:.3g}", flush=True)
+
+    B, q, rows = SWEEP_STACK
+    p, s = SWEEP_SHAPES[-1]
+    del X, params
+    worlds = [_bisect_inputs(torch, rows, p, s, seed=100 + w) for w in range(B)]
+    X = torch.stack([x[:q] for x, _ in worlds])
+    params = CellParams(*(torch.stack(ts)[:, :q] for ts in zip(*(pp for _, pp in worlds))))
+    out = ci.integrate_signals_cuda(X, params)
+    ref = ci.integrate_signals_tiled(X, params, ci.TILE_C)
+    q99, rel_max, abs_max = _fast_errors(out.cpu().numpy(), ref.cpu().numpy())
+    if not (q99 < 1e-4 and rel_max < 0.15):
+        raise AssertionError(f"sweep stack: q99 {q99}, max {rel_max}")
+    for w in range(B):
+        solo = ci.integrate_signals_cuda(X[w : w + 1].contiguous(),
+                                         CellParams(*(t[w : w + 1] for t in params)))
+        if not torch.equal(solo[0], out[w]):
+            raise AssertionError(f"sweep stack: world {w} differs from its own launch")
+    stack = {"B": B, "q": q, "world_stride": rows, "p": p, "s": s,
+             "route": ci.launch_plan(p, s, limit).route, "q99_rel_err": q99,
+             "max_rel_err": rel_max, "max_abs_err": abs_max,
+             "worlds_bit_equal_to_solo_launch": True}
+    print(f"sweep stack {B} x {q} of {rows} rows at p {p}, s {s}: worlds bit-equal to their"
+          f" own launches, q99 {q99:.3g}, max {rel_max:.3g}", flush=True)
+    return {"shapes": shapes, "stack": stack}
+
+
 def _ladder(torch) -> dict:
     """K3 at LADDER_SHAPES: every rung must hold its plain version; the
     ladder kernels' launch count over the two runs."""
@@ -1066,7 +1336,7 @@ def _k3_entry(ladder: dict) -> dict:
 
 
 def main() -> None:
-    global DUMP_DIR
+    global DUMP_DIR, PARENT
     import argparse
 
     parser = argparse.ArgumentParser(description="Smoke run of the port on one CUDA card.")
@@ -1074,12 +1344,20 @@ def main() -> None:
         "--dump", metavar="DIR", type=Path,
         help="save the worst tiles of each real-state kernel check to DIR",
     )
+    parser.add_argument(
+        "--parent", metavar="DIR", type=Path,
+        help="also run the integrator kernel of an earlier tree unpacked in DIR beside this one",
+    )
     args = parser.parse_args()
     DUMP_DIR = args.dump
     torch = _environment()
+    if args.parent is not None:
+        PARENT = _load_parent(args.parent.resolve())
     _build()
     digests = _digests(torch)
     print(json.dumps({"digests": digests}))
+    sweep = _sweep(torch)
+    print(json.dumps({"sweep": sweep}))
     ladder = _ladder(torch)
     print(json.dumps({"kernel_bisect": ladder}))
 
@@ -1094,6 +1372,7 @@ def main() -> None:
     work = _run_steps(torch, world)
     kernel["launches"] = work["launches"]
     kernel["sha256"] = digests["k1"]
+    kernel["sweep"] = sweep
     kernel["ok"] = True
     work["spawn_s"] = spawn_s
     work["peak_mem_bytes"] = torch.cuda.max_memory_allocated()

@@ -9,11 +9,13 @@
 // exp-sum-log allosteric factor `_a_reg_logspace`), with the equilibrium
 // correction's early stop voted per tile of cells.  Its plain PyTorch
 // version is magicsoup_tpu_torch/ops/cuda_integrate.py::
-// integrate_signals_tiled; the two differ only in summation order.
+// integrate_signals_tiled; the two differ only in summation order.  The
+// kernel keeps its first version's summation orders, so its bits are that
+// version's.
 //
-// The body -- mapping, scratch layout, numerics -- is the device functions
-// of integrate_body.cuh, which the ladder of its sub-expressions
-// (bisect.cu) runs too; this kernel composes them.
+// The body -- mapping, residency, numerics -- is the device functions of
+// integrate_body.cuh, which the ladder of its sub-expressions (bisect.cu)
+// runs too; this kernel composes them.
 //
 // Worlds.  The grid is (c / TILE_C, B): blockIdx.y is the world, and a
 // tile never crosses a world, so world w of a batched launch computes
@@ -29,44 +31,98 @@
 // tile.  The tile size is therefore observable numerics: cells stop with
 // their tile-mates.
 //
-// What bounds it.  Bytes: it must read X and the nine parameter tensors
-// once and write X1, q * (16p + 12ps + 8s) bytes (about 233 MB at
-// q = 10240, p = 64, s = 28; 70 us at 3.35 TB/s).  This first version
-// re-reads each cell's parameter rows from L1/L2 on every reduction (a
-// trim pass reads Nf, Nb, A and Kmr once, N three times, and Nb, Nf and N
-// again in each correction step).  Keeping a tile's parameters resident
-// in shared memory for the whole step -- the Pallas kernel's design on
-// the TPU's VMEM -- is the next step for this kernel.
+// What bounds it.  Bytes, at least: it must read X and the nine parameter
+// tensors once and write X1, q * (16p + 12ps + 8s) bytes (117.6 MB at the
+// workload's q = 10240, p = 32, s = 28; 35 us at 3.35 TB/s).  Its f32
+// operations (chip_smoke.py::_bound counts them) take less at 67 TFLOP/s.
+// What held the first version of this kernel at 23x that bound was
+// neither: the ladder (bisect.cu) put it in the serial per-protein warp
+// reductions (a 5-step shuffle chain for every sum over signals, 3 per
+// protein in the velocities and 2 in each correction step, each followed
+// by a scalar tail on one lane) and in re-reading the parameters from
+// L1/L2 on every reduction.  This design does two things about it:
+//   1. a cell's proteins run in parallel (lanes over proteins, each lane
+//      summing its own row in the butterfly's tree order;
+//      integrate_body.cuh), so the tails run 32 at once and no sum is a
+//      shuffle chain;
+//   2. the tile's parameters are staged into shared memory once per launch
+//      and stay resident for the three passes and every correction step.
+// At p 32, s 28 a tile takes 102,912 bytes, and the launch bound keeps a
+// thread within 128 registers, so 2 CTAs (16 warps) share an SM.  What
+// bounds it now is latency: each lane's row is a chain of expf, division
+// and logf that 4 warps per scheduler hide only in part.
+// Shapes whose tile does not fit leave their least-read groups in device
+// memory (the launch plan, ops/cuda_integrate.py::plan).  One CTA per tile
+// keeps the vote a __syncthreads_or and one body for every shape; a
+// cluster of 8 CTAs, one cell each, would give the largest shapes room
+// for all their parameters at the cost of a vote through distributed
+// shared memory -- a later step, once those shapes' times are known.
+// Tensor cores do not apply: each cell's N is its own small (p, s) matrix
+// times one vector, in f32 with exp/log between the products.
+#include <mutex>
+
 #include "integrate_body.cuh"
 
 using namespace msbody;
 
 namespace {
 
-__global__ void __launch_bounds__(TILE_C * WARP)
+// RESIDENT: every group in shared memory (mask == RES_ALL), with loads the
+// compiler knows to be shared; else the groups of `mask`.  Two CTAs of the
+// resident route share an SM at the workload's shape, so it keeps within
+// 128 registers; the other routes' tiles fill most of an SM's shared
+// memory, and at 2 CTAs' budget their generic loads spilled.
+template <bool RESIDENT>
+__global__ void __launch_bounds__(THREADS, RESIDENT ? 2 : 1)
 integrate_kernel(const float* __restrict__ X, const float* __restrict__ Ke,
                  const float* __restrict__ Kmf, const float* __restrict__ Kmb,
                  const float* __restrict__ Kmr, const float* __restrict__ Vmax,
                  const int16_t* __restrict__ N, const int16_t* __restrict__ Nf,
                  const int16_t* __restrict__ Nb, const int16_t* __restrict__ A,
                  float* __restrict__ out, int c, int p, int s,
-                 int64_t pstride) {
-  extern __shared__ float smem[];
+                 int64_t pstride, int mask) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Globals g{Ke, Kmf, Kmb, Kmr, Vmax, N, Nf, Nb, A};
   const int warp = threadIdx.x / WARP;
   const int lane = threadIdx.x % WARP;
-  const int64_t row = (int64_t)blockIdx.x * TILE_C + warp;
-  const int64_t cell = (int64_t)blockIdx.y * c + row;  // X / out row
-  const int64_t prow = (int64_t)blockIdx.y * pstride + row;  // params row
-  const Scratch w = warp_scratch(smem, warp, p, s);
-  const CellPtrs cp = cell_ptrs(Ke, Kmf, Kmb, Kmr, Vmax, N, Nf, Nb, A, prow, p, s);
+  const int64_t row0 = (int64_t)blockIdx.x * TILE_C;
+  const Layout L = tile_layout(p, s, RESIDENT ? RES_ALL : mask);
+  const CellPtrs cp = stage_tile<RESIDENT>(
+      smem, L, mask, g, (int64_t)blockIdx.y * pstride + row0, p, s, warp,
+      lane);
+  const Scratch w = cell_scratch(smem, warp, p, s);
 
-  // offset once: with the row index live across the body, ptxas spills
-  // 24 bytes at the 64 registers it allots
+  // offset once: with the row index live across the body, ptxas spilled
+  // at the first version's register budget
+  const int64_t cell = (int64_t)blockIdx.y * c + row0 + warp;  // X row
   X += cell * s;
   out += cell * s;
   for (int j = lane; j < s; j += WARP) w.x0[j] = X[j];
-  for (int pass = 0; pass < 3; ++pass) trim_pass(cp, w, lane, p, s, trim_factor(pass));
+  __syncwarp();
+  for (int pass = 0; pass < 3; ++pass)
+    trim_pass(cp, w, lane, p, s, trim_factor(pass));
   for (int j = lane; j < s; j += WARP) out[j] = w.x0[j];
+}
+
+// cudaFuncSetAttribute once per kernel, device and larger size: the
+// attribute is a ceiling, so a launch that needs no more than the last one
+// set needs no call.
+template <bool RESIDENT>
+cudaError_t allow_smem(size_t bytes) {
+  constexpr int MAX_DEVICES = 64;
+  static std::mutex mu;
+  static size_t allowed[MAX_DEVICES] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
+  std::lock_guard<std::mutex> lock(mu);
+  if (allowed[dev] >= bytes) return cudaSuccess;
+  err = cudaFuncSetAttribute(integrate_kernel<RESIDENT>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)bytes);
+  if (err == cudaSuccess) allowed[dev] = bytes;
+  return err;
 }
 
 }  // namespace
@@ -75,28 +131,39 @@ extern "C" {
 
 int ms_tile_c() { return TILE_C; }
 
-size_t ms_integrate_smem_bytes(int p, int s) { return smem_bytes(p, s); }
+// The dynamic shared memory of one CTA for (p, s) with the groups of
+// `mask` resident (RES_* of integrate_body.cuh).
+size_t ms_integrate_smem_bytes(int p, int s, int mask) {
+  return tile_layout(p, s, mask).bytes;
+}
 
 // X/out (B, c, s) f32, contiguous.  Per world, pstride rows of
 // Ke/Kmf/Kmb/Vmax (p) f32, Kmr (p, s) f32 and N/Nf/Nb/A (p, s) i16, rows
 // row-major; the first c rows of each world are read.  c % TILE_C == 0,
-// B <= 65535.  Launches on `stream` without synchronizing; returns
-// cudaGetLastError().
+// B <= 65535; `mask` the resident groups, whose layout must fit the
+// card's shared memory.  Launches on `stream` without synchronizing;
+// returns cudaGetLastError().
 int ms_integrate_signals(const float* X, const float* Ke, const float* Kmf,
                          const float* Kmb, const float* Kmr, const float* Vmax,
                          const int16_t* N, const int16_t* Nf, const int16_t* Nb,
                          const int16_t* A, float* out, int B, int c, int p,
-                         int s, long long pstride, void* stream) {
-  const size_t smem = smem_bytes(p, s);
-  cudaError_t err = cudaFuncSetAttribute(
-      integrate_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
+                         int s, long long pstride, int mask, void* stream) {
+  if (mask < 0 || mask > RES_ALL) return (int)cudaErrorInvalidValue;
   if (c == 0 || B == 0) return (int)cudaSuccess;
+  const size_t smem = tile_layout(p, s, mask).bytes;
+  const bool resident = mask == RES_ALL;
+  cudaError_t err = resident ? allow_smem<true>(smem) : allow_smem<false>(smem);
+  if (err != cudaSuccess) return (int)err;
   const dim3 grid(c / TILE_C, B);
-  integrate_kernel<<<grid, TILE_C * WARP, smem, (cudaStream_t)stream>>>(
-      X, Ke, Kmf, Kmb, Kmr, Vmax, N, Nf, Nb, A, out, c, p, s,
-      (int64_t)pstride);
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (resident)
+    integrate_kernel<true><<<grid, THREADS, smem, st>>>(
+        X, Ke, Kmf, Kmb, Kmr, Vmax, N, Nf, Nb, A, out, c, p, s,
+        (int64_t)pstride, mask);
+  else
+    integrate_kernel<false><<<grid, THREADS, smem, st>>>(
+        X, Ke, Kmf, Kmb, Kmr, Vmax, N, Nf, Nb, A, out, c, p, s,
+        (int64_t)pstride, mask);
   return (int)cudaGetLastError();
 }
 

@@ -5,11 +5,13 @@ checked wrapper, its plain PyTorch version and its contract.
 
 The ladder replaces the JAX package's Pallas bisection ladder
 (``performance/pallas_bisect.py``, ``call()`` around ``pl.pallas_call``):
-rungs 1-8 are sub-expressions of the body, 9-11 the velocity body, one
-trim pass and three trim passes (the production device functions of
-``csrc/integrate_body.cuh``).  Rungs 12-13 of the ladder are the
-production entry :func:`~magicsoup_tpu_torch.ops.cuda_integrate.
-integrate_signals_cuda` itself and live in
+rungs 1-8 are sub-expressions of the body on the integrator kernel's
+first skeleton (a warp per cell, lanes over signals, warp reductions),
+9-11 the velocity body, one trim pass and three trim passes (the
+production device functions of ``csrc/integrate_body.cuh``, on the
+integrator kernel's skeleton and launch plan).  Rungs 12-13 of the
+ladder are the production entry :func:`~magicsoup_tpu_torch.ops.
+cuda_integrate.integrate_signals_cuda` itself and live in
 :mod:`magicsoup_tpu_torch.performance.kernel_bisect`.
 
 :func:`run_rung` takes a rung number, ``X`` ``(c, s)`` and the nine
@@ -32,7 +34,13 @@ from typing import NamedTuple
 import torch
 
 from magicsoup_tpu_torch._build import build_shared
-from magicsoup_tpu_torch.ops.cuda_integrate import NVCC_FLAGS, TILE_C, nvcc
+from magicsoup_tpu_torch.ops.cuda_integrate import (
+    NVCC_FLAGS,
+    TILE_C,
+    launch_plan,
+    nvcc,
+    smem_limit,
+)
 from magicsoup_tpu_torch.ops.integrate import (
     INT_PARAM_DTYPE,
     TRIM_FACTORS,
@@ -99,9 +107,9 @@ def _lib():
         if _LIB is None:
             lib = ctypes.CDLL(str(build()))
             vp, ci = ctypes.c_void_p, ctypes.c_int
-            lib.ms_bisect_rung.argtypes = [ci] + [vp] * 11 + [ci] * 3 + [vp]
+            lib.ms_bisect_rung.argtypes = [ci] + [vp] * 11 + [ci] * 4 + [vp]
             lib.ms_bisect_rung.restype = ci
-            lib.ms_bisect_smem_bytes.argtypes = [ci, ci]
+            lib.ms_bisect_smem_bytes.argtypes = [ci, ci, ci, ci]
             lib.ms_bisect_smem_bytes.restype = ctypes.c_size_t
             lib.ms_bisect_tile_c.restype = ci
             lib.ms_bisect_error_string.argtypes = [ci]
@@ -154,8 +162,11 @@ def _launch(rung: int, X: torch.Tensor, params: CellParams) -> torch.Tensor:
     c, s = X.shape
     p = params.Ke.shape[-1]
     lib = _lib()
-    smem = lib.ms_bisect_smem_bytes(p, s)
-    limit = torch.cuda.get_device_properties(X.device).shared_memory_per_block_optin
+    limit = smem_limit(X.device.index)
+    # rungs 9-11 run the integrator kernel's launch plan (their bytes are
+    # the plan's, which the integrator's wrapper holds against its kernel)
+    mask = launch_plan(p, s, limit).mask if rung >= 9 else 0
+    smem = lib.ms_bisect_smem_bytes(rung, p, s, mask)
     if smem > limit:
         raise ValueError(
             f"{p} proteins x {s} signals need {smem} bytes of shared memory"
@@ -169,7 +180,7 @@ def _launch(rung: int, X: torch.Tensor, params: CellParams) -> torch.Tensor:
         stream = torch.cuda.current_stream(X.device).cuda_stream
         err = lib.ms_bisect_rung(
             rung, X.data_ptr(), Ke, Kmf, Kmb, Kmr, Vmax, N, Nf, Nb, A,
-            out.data_ptr(), c, p, s, stream,
+            out.data_ptr(), c, p, s, mask, stream,
         )
     if err != 0:
         raise RuntimeError(

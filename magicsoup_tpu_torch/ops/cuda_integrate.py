@@ -22,15 +22,25 @@ tensors it runs the plain version, :func:`integrate_signals_tiled`: the
 shared body of :mod:`magicsoup_tpu_torch.ops.integrate` with a leading
 tile axis.
 
+The kernel stages each tile's parameters in shared memory for the whole
+step.  :func:`plan` chooses, per (p, s), which parameter groups are
+resident and how many bytes a CTA takes; the C side computes the same
+layout, and the wrapper raises if the two disagree.  Every group is
+resident at the workload's shapes; a shape whose tile does not fit keeps
+its least-read groups in device memory, so no shape is refused whose
+scratch alone fits.
+
 The kernel is built from the repo's source with ``nvcc`` at first use
 (:mod:`magicsoup_tpu_torch._build`), into a plain shared library loaded
 with ctypes.
 """
 import ctypes
+import functools
 import os
 import shutil
 import threading
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
@@ -58,8 +68,74 @@ _LIB = None
 _LIB_LOCK = threading.Lock()
 
 
+#: the dynamic shared memory one CTA may take on an H100 (227 KB)
+SMEM_LIMIT = 232_448
+
+#: the launch plan's parameter groups and their bits, in the order the
+#: plan stages them: by how often the body reads them (RES_* in
+#: ``csrc/integrate_body.cuh``)
+GROUPS = (
+    ("N", 1),
+    ("Nf", 2),
+    ("Nb", 4),
+    ("A", 8),
+    ("Kmr", 16),
+    ("Ke/Kmf/Kmb/Vmax", 32),
+)
+ALL_RESIDENT = 63
+
+
 class SharedMemoryLimitError(ValueError):
     """The per-CTA scratch for (p, s) exceeds the card's shared memory."""
+
+
+class Plan(NamedTuple):
+    """How the kernel runs one (p, s): ``route`` is ``"resident"`` (every
+    parameter group in shared memory), ``"partial"`` or ``"streamed"``
+    (none: every group read from device memory); ``mask`` the resident
+    groups' bits, ``resident`` their names, ``smem_bytes`` the dynamic
+    shared memory of one CTA."""
+
+    route: str
+    mask: int
+    resident: tuple[str, ...]
+    smem_bytes: int
+
+
+def smem_bytes(p: int, s: int, mask: int) -> int:
+    """One CTA's dynamic shared memory for (p, s) with the groups of
+    ``mask`` resident: per cell 4 signal and 4 protein vectors of
+    scratch, then the resident groups, their (p, s) rows padded to an odd
+    word stride (``tile_layout`` in ``csrc/integrate_body.cuh``)."""
+    ld16 = s + (2 - s % 4) % 4
+    ld32 = s | 1
+    n = TILE_C * (4 * s + 4 * p) * 4
+    if mask & 32:
+        n += 4 * TILE_C * p * 4
+    if mask & 16:
+        n += TILE_C * p * ld32 * 4
+    n += sum(TILE_C * p * ld16 * 2 for bit in (1, 2, 4, 8) if mask & bit)
+    return n
+
+
+def plan(p: int, s: int, limit: int = SMEM_LIMIT) -> Plan:
+    """The launch plan for p proteins and s signals under ``limit`` bytes
+    of shared memory per CTA: stage each group of :data:`GROUPS` in turn
+    if it still fits.  Raises :class:`SharedMemoryLimitError` when not
+    even the scratch fits."""
+    mask = 0
+    for _, bit in GROUPS:
+        if smem_bytes(p, s, mask | bit) <= limit:
+            mask |= bit
+    need = smem_bytes(p, s, mask)
+    if need > limit:
+        raise SharedMemoryLimitError(
+            f"{p} proteins x {s} signals need {need} bytes of shared memory"
+            f" per tile of {TILE_C} cells; the card allows {limit}"
+        )
+    route = "resident" if mask == ALL_RESIDENT else ("partial" if mask else "streamed")
+    names = tuple(name for name, bit in GROUPS if mask & bit)
+    return Plan(route, mask, names, need)
 
 
 def select_tile_c(c: int) -> int:
@@ -122,10 +198,10 @@ def _lib():
             lib = ctypes.CDLL(str(build()))
             vp, ci = ctypes.c_void_p, ctypes.c_int
             lib.ms_integrate_signals.argtypes = (
-                [vp] * 11 + [ci] * 4 + [ctypes.c_longlong, vp]
+                [vp] * 11 + [ci] * 4 + [ctypes.c_longlong, ci, vp]
             )
             lib.ms_integrate_signals.restype = ci
-            lib.ms_integrate_smem_bytes.argtypes = [ci, ci]
+            lib.ms_integrate_smem_bytes.argtypes = [ci, ci, ci]
             lib.ms_integrate_smem_bytes.restype = ctypes.c_size_t
             lib.ms_tile_c.restype = ci
             lib.ms_error_string.argtypes = [ci]
@@ -181,22 +257,35 @@ def _check(X: torch.Tensor, params: CellParams) -> int:
     return strides.pop()
 
 
-def _launch(X: torch.Tensor, params: CellParams) -> torch.Tensor:
-    """Launch the kernel on ``X`` ``(B, c, s)``; the output tensor."""
-    pstride = _check(X, params)
-    select_tile_c(X.shape[1])
+@functools.lru_cache(maxsize=None)
+def smem_limit(device_index: int) -> int:
+    """The card's dynamic shared memory per CTA (read once per device)."""
+    return torch.cuda.get_device_properties(device_index).shared_memory_per_block_optin
+
+
+@functools.lru_cache(maxsize=None)
+def launch_plan(p: int, s: int, limit: int) -> Plan:
+    """:func:`plan`, held against the kernel's own layout: raises if the C
+    side's bytes for the plan's mask differ (once per (p, s, limit))."""
+    got = plan(p, s, limit)
+    kernel_bytes = _lib().ms_integrate_smem_bytes(p, s, got.mask)
+    if kernel_bytes != got.smem_bytes:
+        raise RuntimeError(
+            f"launch plan and kernel disagree on the shared memory of {p} x {s}"
+            f" with groups {got.resident}: {got.smem_bytes} vs {kernel_bytes} bytes"
+        )
+    return got
+
+
+def _launch(X: torch.Tensor, params: CellParams, pstride: int) -> torch.Tensor:
+    """Launch the kernel on ``X`` ``(B, c, s)`` (checked by :func:`_check`,
+    whose world stride ``pstride`` is); the output tensor."""
     B, c, s = X.shape
     p = params.Ke.shape[-1]
-    lib = _lib()
-    smem = lib.ms_integrate_smem_bytes(p, s)
-    limit = torch.cuda.get_device_properties(X.device).shared_memory_per_block_optin
-    if smem > limit:
-        raise SharedMemoryLimitError(
-            f"{p} proteins x {s} signals need {smem} bytes of shared memory"
-            f" per tile of {TILE_C} cells; the card allows {limit}"
-        )
     if B > 65535:
         raise ValueError(f"{B} worlds exceed the grid's 65535")
+    lib = _lib()
+    how = launch_plan(p, s, smem_limit(X.device.index))
     out = torch.empty_like(X)
     with torch.cuda.device(X.device):
         stream = torch.cuda.current_stream(X.device).cuda_stream
@@ -217,6 +306,7 @@ def _launch(X: torch.Tensor, params: CellParams) -> torch.Tensor:
             p,
             s,
             pstride,
+            how.mask,
             stream,
         )
     if err != 0:
@@ -253,10 +343,10 @@ def integrate_signals_cuda(
     global launches
     if X.ndim != 3:
         raise ValueError(f"X must be (worlds, cells, signals), got {tuple(X.shape)}")
-    _check(X, params)
+    pstride = _check(X, params)
     tile_c = _route(X, tile_c)
     if X.device.type == "cpu":
         return integrate_signals_tiled(X, params, tile_c)
-    out = _launch(X, params)
+    out = _launch(X, params, pstride)
     launches += 1
     return out

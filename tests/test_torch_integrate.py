@@ -108,9 +108,15 @@ def test_torch_det_bit_equal_xla_det(which):
     assert np.array_equal(ref, out)
 
 
-@pytest.mark.parametrize("tile_c", [8, 64])
-def test_plain_tiled_matches_pallas_interpret(tile_c):
-    X, d = _inputs(seed=3)
+@pytest.mark.parametrize(
+    "tile_c,shape",
+    [(8, (64, 8, 12)), (64, (64, 8, 12)), (8, (16, 64, 82))],
+    ids=["8", "64", "8-p64-s82"],
+)
+def test_plain_tiled_matches_pallas_interpret(tile_c, shape):
+    # p 64, s 82: the largest shape the package's chemistries reach
+    c, p, s = shape
+    X, d = _inputs(c=c, p=p, s=s, seed=3)
     ref = np.asarray(integrate_signals_pallas(*_jax(X, d), tile_c=tile_c, interpret=True))
     before = ci.launches
     out = ci.integrate_signals_cuda(*_one_world(X, d), tile_c=tile_c)[0].numpy()
@@ -183,6 +189,63 @@ def test_default_mode_integrate_signals_is_batch_global(monkeypatch):
     out = integrate_signals(*_torch(X, d)).numpy()
     tiled = ci.integrate_signals_tiled(*_torch(X, d), tile_c=64).numpy()
     assert np.array_equal(out, tiled)
+
+
+#: the shapes the package reaches (chip_smoke.py's sweep) and p up to 128
+PLAN_SHAPES = [(8, 20), (32, 28), (64, 28), (32, 82), (64, 82), (128, 28), (128, 82)]
+
+
+@pytest.mark.parametrize("p,s", PLAN_SHAPES, ids=[f"p{p}-s{s}" for p, s in PLAN_SHAPES])
+def test_launch_plan_fits_every_shape(p, s):
+    plan = ci.plan(p, s)
+    assert plan.smem_bytes == ci.smem_bytes(p, s, plan.mask) <= 232_448
+    assert plan.resident == tuple(n for n, bit in ci.GROUPS if plan.mask & bit)
+    # greedy: no group left out would still fit
+    for _, bit in ci.GROUPS:
+        if not plan.mask & bit:
+            assert ci.smem_bytes(p, s, plan.mask | bit) > 232_448
+    # the workload's shape keeps everything resident, two CTAs to an SM
+    if (p, s) == (32, 28):
+        assert plan.route == "resident" and 2 * plan.smem_bytes <= 228 * 1024
+
+
+def test_launch_plan_takes_every_shape_the_first_kernel_took():
+    # with no group resident the layout is the first kernel's scratch, so
+    # every shape whose scratch fits runs (streamed); beyond it, a typed
+    # refusal
+    for p, s in [(1, 2), (256, 82), (1024, 82), (1734, 82), (64, 1000)]:
+        first = ci.TILE_C * (4 * s + 4 * p) * 4
+        assert ci.smem_bytes(p, s, 0) == first <= ci.SMEM_LIMIT
+        assert ci.plan(p, s).smem_bytes <= ci.SMEM_LIMIT
+    assert ci.plan(1024, 82).route == "streamed"
+    assert ci.plan(64, 82).route == "partial"
+    assert ci.plan(64, 82).resident == ("N", "Nf", "Ke/Kmf/Kmb/Vmax")
+    with pytest.raises(ci.SharedMemoryLimitError, match="232448"):
+        ci.plan(1735, 82)
+    # resident (p, s) rows are padded to an odd word stride
+    assert ci.smem_bytes(32, 28, 1) - ci.smem_bytes(32, 28, 0) == ci.TILE_C * 32 * 30 * 2
+    assert ci.smem_bytes(32, 28, 16) - ci.smem_bytes(32, 28, 0) == ci.TILE_C * 32 * 29 * 4
+
+
+def test_wrapper_checks_its_inputs_once_per_call(monkeypatch):
+    X, d = _inputs(seed=6)
+    calls = []
+    check = ci._check
+    monkeypatch.setattr(ci, "_check", lambda *a: calls.append(1) or check(*a))
+    ci.integrate_signals_cuda(*_one_world(X, d))
+    assert len(calls) == 1
+    Xt, params = _one_world(X, d)
+    with pytest.raises(TypeError, match="Kmr must be torch.float32"):
+        ci.integrate_signals_cuda(Xt, params._replace(Kmr=params.Kmr.double()))
+
+
+@pytest.mark.cuda
+def test_launch_plan_matches_the_kernels_layout():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel's library builds with nvcc")
+    limit = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
+    for p, s in PLAN_SHAPES:
+        assert ci.launch_plan(p, s, limit) == ci.plan(p, s, limit)
 
 
 @pytest.mark.cuda
