@@ -2,9 +2,10 @@
 Smoke run of the PyTorch/CUDA port on one CUDA card:
 
 1. environment: torch, CUDA, and the card's name and power limit;
-2. build: the integrator kernel (``magicsoup_tpu_torch/csrc/integrate.cu``,
-   nvcc) and the genome engine (g++) from the checkout's sources, started
-   together;
+2. build: the integrator kernel (``magicsoup_tpu_torch/csrc/integrate.cu``),
+   its ladder (``csrc/bisect.cu``) and the threefry kernel
+   (``csrc/threefry.cu``) with nvcc and the genome engine with g++, from
+   the checkout's sources, all started together;
 3. K1, the kernel's solo grid, on seeded inputs: against its plain PyTorch
    version at the workload's shapes (q = 10240 live rows, s = 28 signals,
    the world's real protein count p) on inputs drawn as
@@ -98,9 +99,36 @@ Smoke run of the PyTorch/CUDA port on one CUDA card:
     largest absolute and ULP difference, fails the run.  The 20 steps also
     run on the CPU without the flush-to-zero bit (the card keeps
     subnormals as that run does), and whether and where its bits first
-    differ from the flushed CPU run's is recorded.
+    differ from the flushed CPU run's is recorded.  Then a token world
+    (``genome_backend="token"``) runs the same 20 steps on both devices,
+    each step followed by ``recombinate_cells(p=1e-5)`` and
+    ``mutate_cells(p=1e-4)`` so that the token programs change genomes,
+    with the store's tokens and lengths among the hashed state;
+14. the threefry kernel (``csrc/threefry.cu``) against its plain version
+    (``ops/prng.py::hash_counters_plain`` on the same card), bit for bit:
+    ``random_bits`` at (16384, 1024) under one key (the token store's
+    shape at 10k cells) and at (4, 16384) under four keys, ``split`` of one
+    key and of four into 4, and odd sizes (1, 7, 1000003); one launch per
+    draw; the kernel's median time per draw at (16384, 1024), the plain
+    version's, and the bound (bytes written at the card's memory rate,
+    counted integer operations at its CUDA-core rate);
+15. the token classic workload: phase 5 with ``genome_backend="token"``
+    (the same world, seed, warm-up, timed block and phase pass): steps/s
+    beside phase 5's, seconds per phase, one K1 launch per step, threefry
+    launches per step, whole-store host fetches per step, and the genome
+    decodes of the timed block (only phenotype-cache misses decode);
+16. the token stepper at K = 1: phase 6 over a token world (no
+    sync-free check: a riding refresh reads the store's host snapshot);
+    one K2 launch per simulated step, threefry launches per step;
+17. the token fleet: phase 7 over four token worlds, one K2 launch per
+    fleet step, flags decoded as in 6 and 7;
+18. the genome-ops microbenchmark
+    (``magicsoup_tpu_torch.performance.genome_ops``) at its defaults: 1k,
+    8k and 40k cells of 1k-bp genomes, string against token for mutate,
+    recombinate and the warm translate feed.
 
-Phases 10 and 11 run right after the build, 12 and 13 after 9.
+Phases 10, 11 and 14 run right after the build, 15 after 5, 16 and 17
+after 7, 12, 18 and 13 after 9.
 
 With ``--parent DIR`` the run also builds an earlier version of the
 integrator kernel from DIR (its ``magicsoup_tpu_torch/ops/
@@ -111,8 +139,10 @@ plain version, its time (the two kernels timed in turns: earlier, this,
 this, earlier) and its host time per launch.  Nothing of the earlier
 version is held to a contract.
 
-It prints a ``{"workload": ...}`` line, a ``{"stepper": ...}`` line, a
-``{"fleet": ...}`` line, the flags per window, the seeded and real-state
+It prints a ``{"threefry": ...}`` line, a ``{"workload": ...}`` line and
+a ``{"token_workload": ...}`` line, a ``{"stepper": ...}`` line, a
+``{"fleet": ...}`` line (each with its token runs), a
+``{"genome_ops": ...}`` line, the flags per window, the seeded and real-state
 K2 lines, the digests, sweep, ladder, microbenchmark and det lines, a
 ``{"kernels": [...]}`` line, the card's name and power limit, and as its
 last line ``{"ok": true, "device": {...}}``.  Any failure raises, and the
@@ -190,6 +220,20 @@ DET_MAP = 64
 DET_GENOME = 300
 DET_SEED = 7
 DET_DISPATCHES = 10
+#: det mode of a token world: the extra evolution after each step
+DET_TOKEN_P_RECOMBINATION = 1e-5
+DET_TOKEN_P_MUTATION = 1e-4
+#: the threefry draws: the token store's shape at 10k cells, the
+#: stepper's per-world shape, odd sizes
+THREEFRY_STORE = (16384, 1024)
+THREEFRY_WORLDS = (4, 16384)
+THREEFRY_ODD = (1, 7, 1_000_003)
+#: integer operations per element of one threefry hash: two key adds,
+#: 20 rounds of add, rotate and xor, 5 key injections of three adds, and
+#: the words' xor
+THREEFRY_OPS = 2 + 20 * 3 + 5 * 3 + 1
+#: the genome-ops microbenchmark's defaults
+GENOME_OPS = dict(sizes=[1000, 8000, 40000], s=1000, r=5, p=1e-4, pb=1e-5, seed=0)
 #: where the real-state checks save their worst tiles (``--dump DIR``)
 DUMP_DIR = None
 STEPPER_KW = dict(
@@ -221,10 +265,11 @@ def _environment():
 
 def _build():
     from magicsoup_tpu_torch.native import engine
-    from magicsoup_tpu_torch.ops import cuda_bisect, cuda_integrate
+    from magicsoup_tpu_torch.ops import cuda_bisect, cuda_integrate, cuda_prng
 
     t0 = time.perf_counter()
-    builds = [cuda_integrate.build, cuda_bisect.build] + ([PARENT.build] if PARENT else [])
+    builds = [cuda_integrate.build, cuda_bisect.build, cuda_prng.build]
+    builds += [PARENT.build] if PARENT else []
     with ThreadPoolExecutor(max_workers=len(builds) + 1) as pool:
         kernels = [pool.submit(b) for b in builds]
         genome = pool.submit(engine.get_lib)
@@ -507,14 +552,15 @@ def _world_kernel_check(torch, world) -> dict:
     }
 
 
-def _workload(torch, seed: int = SEED):
+def _workload(torch, seed: int = SEED, genome_backend: str = "string"):
     """A world of the main paths, with its cells spawned."""
     import magicsoup_tpu_torch as mt
     from magicsoup_tpu_torch.examples.wood_ljungdahl import CHEMISTRY
 
     rng = random.Random(seed)
     t0 = time.perf_counter()
-    world = mt.World(chemistry=CHEMISTRY, map_size=MAP_SIZE, seed=seed)
+    world = mt.World(chemistry=CHEMISTRY, map_size=MAP_SIZE, seed=seed,
+                     genome_backend=genome_backend)
     world.spawn_cells(
         [mt.random_genome(s=GENOME_SIZE, rng=rng) for _ in range(N_CELLS)]
     )
@@ -522,15 +568,23 @@ def _workload(torch, seed: int = SEED):
     spawn_s = time.perf_counter() - t0
     if world.integrator != "cuda" or world.device.type != "cuda":
         raise AssertionError(f"world runs {world.integrator} on {world.device}")
+    store = world.genome_store
+    if (store is not None) != (genome_backend == "token") or (
+        store is not None and store.tokens.device.type != "cuda"
+    ):
+        raise AssertionError(f"a {genome_backend} world's genome store is {store}")
     return world, spawn_s
 
 
 def _run_steps(torch, world) -> dict:
     """The main path: warm-up, timed and phase-timed workload steps, with
-    the kernel's launch count set to 0 just before and read right after."""
+    the kernels' launch counts set to 0 just before and read right after;
+    the token store's host fetches and decodes are counted too."""
     import numpy as np
 
+    from magicsoup_tpu_torch.analysis import runtime
     from magicsoup_tpu_torch.ops import cuda_integrate as ci
+    from magicsoup_tpu_torch.ops import cuda_prng
     from magicsoup_tpu_torch.workload import sim_step
 
     atp = world.chemistry.molname_2_idx["ATP"]
@@ -554,27 +608,41 @@ def _run_steps(torch, world) -> dict:
             world, rng, n_cells=N_CELLS, genome_size=GENOME_SIZE, atp_idx=atp, **kw
         )
 
+    genome0 = runtime.genome_stats()
     ci.launches = 0
+    cuda_prng.launches = 0
     for _ in range(WARMUP_STEPS):
         step(sync=False)
     torch.cuda.synchronize()
     # steps/s: no barrier inside a block (the next step's ATP fetch is the
     # only wait, as in bench.py), one at its end
     block_s = []
+    timed0 = (runtime.genome_stats(), world.phenotypes.misses)
     for _ in range(TIMED_BLOCKS):
         t0 = time.perf_counter()
         for _ in range(BLOCK_STEPS):
             step(sync=False)
         torch.cuda.synchronize()
         block_s.append(time.perf_counter() - t0)
+    timed1 = (runtime.genome_stats(), world.phenotypes.misses)
     # seconds per phase: a separate pass with every phase synchronized
     for _ in range(PHASE_STEPS):
         step(timeit=_Timer)
     launches = ci.launches
+    threefry_launches = cuda_prng.launches
+    genome1 = runtime.genome_stats()
 
     n_steps = WARMUP_STEPS + TIMED_BLOCKS * BLOCK_STEPS + PHASE_STEPS
     if launches != n_steps:
         raise AssertionError(f"{launches} kernel launches in {n_steps} steps")
+    token = world.genome_store is not None
+    if (threefry_launches > 0) != token:
+        raise AssertionError(f"{threefry_launches} threefry launches in a"
+                             f" {world.genome_backend} world")
+    decoded = timed1[0]["genome_decode_rows"] - timed0[0]["genome_decode_rows"]
+    misses = timed1[1] - timed0[1]
+    if token and decoded != misses:
+        raise AssertionError(f"{decoded} genome rows decoded for {misses} cache misses")
     cm = world.cell_molecules
     mm = world.molecule_map.cpu().numpy()
     for name, arr in (("cell_molecules", cm), ("molecule_map", mm)):
@@ -593,6 +661,15 @@ def _run_steps(torch, world) -> dict:
         "phase_s_per_step": {k: v / PHASE_STEPS for k, v in phases.items()},
         "n_cells": world.n_cells,
         "capacity": world._capacity,
+        "genome_backend": world.genome_backend,
+        "threefry_launches": threefry_launches,
+        "threefry_launches_per_step": threefry_launches / n_steps,
+        "store_fetches_per_step": (genome1["genome_fetches"] - genome0["genome_fetches"]) / n_steps,
+        "store_fetch_bytes_per_step": (genome1["genome_fetch_bytes"]
+                                       - genome0["genome_fetch_bytes"]) / n_steps,
+        "timed_genome_decode_rows": decoded,
+        "timed_cache_misses": misses,
+        "store_shape": (list(world.genome_store.tokens.shape) if token else None),
     }
 
 
@@ -923,34 +1000,44 @@ def _profile(torch, run, n_steps: int) -> dict:
     }
 
 
-def _stepper_run(torch, taps: _Taps, k: int, capture: bool) -> dict:
+def _stepper_run(torch, taps: _Taps, k: int, capture: bool,
+                 genome_backend: str = "string") -> dict:
     """The pipelined stepper at full width, megastep k; with ``capture``,
     ``taps`` keeps the integrator's inputs of the timed window's first
-    step."""
+    step.  A token world's dispatch is not checked for being sync-free:
+    a riding refresh reads the store's host snapshot, as in the JAX
+    package."""
     import magicsoup_tpu_torch as mt
+    from magicsoup_tpu_torch.analysis import runtime
     from magicsoup_tpu_torch.ops import cuda_integrate as ci
+    from magicsoup_tpu_torch.ops import cuda_prng
 
-    world, spawn_s = _workload(torch)
+    world, spawn_s = _workload(torch, genome_backend=genome_backend)
+    token = genome_backend == "token"
+    label = f"{'token ' if token else ''}stepper K{k}"
     torch.cuda.reset_peak_memory_stats()
-    taps.window = f"stepper K{k} warm-up"
+    taps.window = f"{label} warm-up"
     st = mt.PipelinedStepper(world, megastep=k, **STEPPER_KW)
     for _ in range(STEPPER_WARMUP):
         st.step()
     st.drain()
-    # one dispatch with the fetcher idle: enqueueing must not synchronize
-    torch.cuda.synchronize()
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        st.step()
-    finally:
-        torch.cuda.set_sync_debug_mode("default")
-    st.drain()
+    if not token:
+        # one dispatch with the fetcher idle: enqueueing must not synchronize
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            st.step()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        st.drain()
     torch.cuda.synchronize()
     stats0 = dict(st.stats)
-    taps.window = f"stepper K{k} timed"
+    taps.window = f"{label} timed"
     if capture:
         taps.arm()
+    genome0 = runtime.genome_stats()
     ci.launches = 0
+    cuda_prng.launches = 0
     t0 = time.perf_counter()
     for _ in range(STEPPER_STEPS // k):
         st.step()
@@ -958,8 +1045,12 @@ def _stepper_run(torch, taps: _Taps, k: int, capture: bool) -> dict:
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = ci.launches
+    threefry_launches = cuda_prng.launches
+    genome1 = runtime.genome_stats()
     if launches != STEPPER_STEPS:
-        raise AssertionError(f"stepper K={k}: {launches} K2 launches in {STEPPER_STEPS} steps")
+        raise AssertionError(f"{label}: {launches} K2 launches in {STEPPER_STEPS} steps")
+    if threefry_launches == 0:
+        raise AssertionError(f"{label}: no threefry launch")
     window = {key: st.stats[key] - stats0[key] for key in st.stats}
 
     def _more():
@@ -967,23 +1058,29 @@ def _stepper_run(torch, taps: _Taps, k: int, capture: bool) -> dict:
             st.step()
         st.drain()
 
-    taps.window = f"stepper K{k} profiled"
+    taps.window = f"{label} profiled"
     prof = _profile(torch, _more, PROFILE_STEPS)
-    taps.window = f"stepper K{k} flush"
+    taps.window = f"{label} flush"
     st.flush()
-    _check_state(world, f"stepper K={k}")
+    _check_state(world, label)
     return {
+        "genome_backend": genome_backend,
         "megastep": k,
         "timed_steps": STEPPER_STEPS,
         "steps_per_s": STEPPER_STEPS / dt,
         "launches": launches,
+        "threefry_launches": threefry_launches,
+        "threefry_launches_per_step": threefry_launches / STEPPER_STEPS,
+        "store_fetches_per_step": (genome1["genome_fetches"]
+                                   - genome0["genome_fetches"]) / STEPPER_STEPS,
+        "genome_decode_rows": genome1["genome_decode_rows"] - genome0["genome_decode_rows"],
         "window_s": dt,
         # host seconds per simulated step in the window: enqueueing the
         # dispatches, blocked on record fetches, and the whole step() calls
         "dispatch_s_per_step": window["dispatch_ms"] / 1e3 / STEPPER_STEPS,
         "fetch_wait_s_per_step": window["fetch_ms"] / 1e3 / STEPPER_STEPS,
         "step_call_s_per_step": window["step_ms"] / 1e3 / STEPPER_STEPS,
-        "sync_free_dispatch": True,
+        "sync_free_dispatch": True if not token else "not checked",
         "profile": prof,
         "stats": {key: st.stats[key] for key in st.stats},
         "n_cells": world.n_cells,
@@ -993,26 +1090,30 @@ def _stepper_run(torch, taps: _Taps, k: int, capture: bool) -> dict:
     }
 
 
-def _fleet_run(torch, taps: _Taps) -> dict:
+def _fleet_run(torch, taps: _Taps, genome_backend: str = "string") -> dict:
     """Four worlds as one rung group of a FleetScheduler; ``taps`` keeps
     the integrator's inputs of the timed window's first fleet step."""
     import magicsoup_tpu_torch as mt
     from magicsoup_tpu_torch.analysis import runtime
     from magicsoup_tpu_torch.ops import cuda_integrate as ci
+    from magicsoup_tpu_torch.ops import cuda_prng
 
-    worlds = [_workload(torch, seed=SEED + i)[0] for i in range(FLEET_WORLDS)]
+    worlds = [_workload(torch, seed=SEED + i, genome_backend=genome_backend)[0]
+              for i in range(FLEET_WORLDS)]
+    label = "token fleet" if genome_backend == "token" else "fleet"
     torch.cuda.reset_peak_memory_stats()
-    taps.window = "fleet warm-up"
+    taps.window = f"{label} warm-up"
     fleet = mt.FleetScheduler(block=FLEET_WORLDS)
     for w in worlds:
         fleet.admit(w, megastep=1, **STEPPER_KW)
     fleet.step()
     fleet.drain()
     torch.cuda.synchronize()
-    taps.window = "fleet timed"
+    taps.window = f"{label} timed"
     taps.arm()
     runtime.reset_counters()
     ci.launches = 0
+    cuda_prng.launches = 0
     t0 = time.perf_counter()
     for _ in range(FLEET_STEPS):
         fleet.step()
@@ -1020,25 +1121,34 @@ def _fleet_run(torch, taps: _Taps) -> dict:
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = ci.launches
+    threefry_launches = cuda_prng.launches
     census = runtime.snapshot()
+    genome = runtime.genome_stats()
     if launches != FLEET_STEPS:
-        raise AssertionError(f"fleet: {launches} K2 launches in {FLEET_STEPS} fleet steps")
+        raise AssertionError(f"{label}: {launches} K2 launches in {FLEET_STEPS} fleet steps")
     if census.get("dispatches") != FLEET_STEPS:
-        raise AssertionError(f"fleet: dispatch census {census}")
+        raise AssertionError(f"{label}: dispatch census {census}")
+    if threefry_launches == 0:
+        raise AssertionError(f"{label}: no threefry launch")
 
     def _more():
         for _ in range(PROFILE_STEPS):
             fleet.step()
         fleet.drain()
 
-    taps.window = "fleet profiled"
+    taps.window = f"{label} profiled"
     prof = _profile(torch, _more, PROFILE_STEPS)
-    taps.window = "fleet flush"
+    taps.window = f"{label} flush"
     fleet.flush()
     for i, w in enumerate(worlds):
-        _check_state(w, f"fleet world {i}")
+        _check_state(w, f"{label} world {i}")
     return {
+        "genome_backend": genome_backend,
         "worlds": FLEET_WORLDS,
+        "threefry_launches": threefry_launches,
+        "threefry_launches_per_fleet_step": threefry_launches / FLEET_STEPS,
+        "store_fetches_per_fleet_step": genome["genome_fetches"] / FLEET_STEPS,
+        "genome_decode_rows": genome["genome_decode_rows"],
         "timed_fleet_steps": FLEET_STEPS,
         "steps_per_s_per_world": FLEET_STEPS / dt,
         "steps_per_s_aggregate": FLEET_WORLDS * FLEET_STEPS / dt,
@@ -1178,6 +1288,20 @@ def _microbench(torch) -> list:
     return rows
 
 
+def _genome_ops() -> list:
+    """The genome-ops microbenchmark at its defaults (phase 18); each
+    token op must launch the threefry kernel."""
+    from magicsoup_tpu_torch.ops import cuda_prng
+    from magicsoup_tpu_torch.performance import genome_ops
+
+    cuda_prng.launches = 0
+    rows = genome_ops.bench(**GENOME_OPS, device="cuda",
+                            log=lambda line: print(f"genome_ops {line}", flush=True))
+    if cuda_prng.launches == 0 or len(rows) != 6 * len(GENOME_OPS["sizes"]):
+        raise AssertionError(f"genome_ops: {len(rows)} rows, {cuda_prng.launches} launches")
+    return rows
+
+
 def _state_arrays(world) -> dict:
     """Every piece of a world's state, as scripts/bitrepro.py hashes it."""
     import numpy as np
@@ -1193,6 +1317,9 @@ def _state_arrays(world) -> dict:
     }
     for name, t in world.kinetics.params._asdict().items():
         out[f"params.{name}"] = t[:n].cpu().numpy()
+    if world.genome_store is not None:
+        out["store.tokens"] = world.genome_store.tokens.cpu().numpy()
+        out["store.lengths"] = world.genome_store.lengths.cpu().numpy()
     return out
 
 
@@ -1290,6 +1417,26 @@ def _det_on_card(torch) -> dict:
         div = _first_divergence(*states)
         if div is not None or stats[0] != stats[1]:
             raise AssertionError(f"det stepper: card and CPU diverge: {div}, stats {stats}")
+
+        # a token world: the workload plus raised evolution after each step
+        t0 = time.perf_counter()
+        tworlds = {d: mt.World(chemistry=CHEMISTRY, map_size=DET_MAP, seed=DET_SEED, device=d,
+                               genome_backend="token") for d in ("cpu", "cuda")}
+        trngs = {d: random.Random(DET_SEED) for d in tworlds}
+        token_cells, token_misses = [], 0
+        for step in range(DET_STEPS):
+            for d, w in tworlds.items():
+                sim_step(w, trngs[d], n_cells=DET_CELLS, genome_size=DET_GENOME,
+                         atp_idx=atp, sync=True)
+                w.recombinate_cells(p=DET_TOKEN_P_RECOMBINATION)
+                w.mutate_cells(p=DET_TOKEN_P_MUTATION)
+            tstates = {d: _state_arrays(w) for d, w in tworlds.items()}
+            div = _first_divergence(tstates["cpu"], tstates["cuda"])
+            if div is not None:
+                raise AssertionError(f"det token world: card and CPU diverge at step {step}: {div}")
+            token_cells.append(tworlds["cuda"].n_cells)
+            token_misses = tworlds["cuda"].phenotypes.misses
+        token_s = time.perf_counter() - t0
     finally:
         if saved is None:
             os.environ.pop("MAGICSOUP_TPU_DETERMINISTIC")
@@ -1304,6 +1451,96 @@ def _det_on_card(torch) -> dict:
         "stepper_K1": {"dispatches": DET_DISPATCHES, "steps": stats[1]["steps"],
                        "n_cells": int(states[1]["positions"].shape[0]),
                        "bit_equal_after_flush": True},
+        "token_classic": {"steps": DET_STEPS, "cells": DET_CELLS, "map_size": DET_MAP,
+                          "seed": DET_SEED, "p_recombination": DET_TOKEN_P_RECOMBINATION,
+                          "p_mutation": DET_TOKEN_P_MUTATION, "n_cells": token_cells,
+                          "phenotype_cache_misses": token_misses,
+                          "store_shape": list(tworlds["cuda"].genome_store.tokens.shape),
+                          "tensors": sorted(_state_arrays(tworlds["cuda"])),
+                          "bit_equal_every_step": True, "wall_s": token_s},
+    }
+
+
+def _threefry(torch) -> dict:
+    """Phase 14: the threefry kernel against its plain version on the
+    card, bit for bit, one launch per draw; times and bound at the
+    store's shape."""
+    from magicsoup_tpu_torch.ops import cuda_prng, prng
+    from magicsoup_tpu_torch.performance import HBM_BYTES_PER_S, cuda_median_ms
+
+    key = prng.prng_key(SEED, "cuda")
+    n_keys, n = THREEFRY_WORLDS
+    keys = torch.stack([prng.prng_key(SEED + i, "cuda") for i in range(n_keys)])
+    cases = [("random_bits", key, THREEFRY_STORE), ("random_bits", keys, (n,)),
+             ("split", key, (4,)), ("split", keys, (4,))]
+    cases += [("random_bits", key, (m,)) for m in THREEFRY_ODD]
+    checked = []
+    for name, k, shape in cases:
+        pair = name == "split"
+        before = cuda_prng.launches
+        out = prng._hash_counters(k, shape, pair)
+        torch.cuda.synchronize()
+        launched = cuda_prng.launches - before
+        ref = prng.hash_counters_plain(k, shape, pair)
+        if launched != 1 or not torch.equal(out, ref):
+            raise AssertionError(f"threefry {name} {tuple(k.shape)} {shape}: {launched}"
+                                 f" launches, bit-equal {torch.equal(out, ref)}")
+        checked.append({"draw": name, "keys": list(k.shape[:-1]), "shape": list(shape),
+                        "launches": launched, "bit_equal": True})
+    # the CPU's plain version gives the same bits
+    small = prng._hash_counters(keys, (1000,))
+    if not torch.equal(small.cpu(), prng.hash_counters_plain(keys.cpu(), (1000,))):
+        raise AssertionError("threefry: the card's bits differ from the CPU's")
+    del out, ref
+    draw = lambda: prng.random_bits(key, THREEFRY_STORE)  # noqa: E731
+    plain = lambda: prng.hash_counters_plain(key, THREEFRY_STORE)  # noqa: E731
+    before = cuda_prng.launches
+    ms = cuda_median_ms(draw, KERNEL_REPS)
+    launches = cuda_prng.launches - before
+    plain_ms = cuda_median_ms(plain, PLAIN_REPS)
+    elements = THREEFRY_STORE[0] * THREEFRY_STORE[1]
+    bytes_ms = (8 * elements + 16) / HBM_BYTES_PER_S * 1e3
+    ops_ms = THREEFRY_OPS * elements / F32_FLOP_PER_S * 1e3
+    got = {
+        "checked": checked,
+        "card_equals_cpu": True,
+        "shape": list(THREEFRY_STORE),
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "bytes_bound_ms": bytes_ms,
+        "ops_bound_ms": ops_ms,
+        "ops_per_element": THREEFRY_OPS,
+        "timing_launches": launches,
+        "host_us_per_launch": _host_us(torch, draw),
+    }
+    print(f"threefry at {THREEFRY_STORE}: {ms:.4f} ms (plain {plain_ms:.3f} ms, bound"
+          f" {got['bound_ms']:.4f} ms by {got['bound_by']}), {len(checked)} draws bit-equal,"
+          f" one launch each", flush=True)
+    return got
+
+
+def _threefry_entry(threefry: dict, per_path: dict) -> dict:
+    """The threefry kernel's entry of the kernels line: times from phase
+    14, launches from the token classic run (phase 15), per path beside."""
+    return {
+        "name": "threefry2x32",
+        "route": "cuda",
+        "source": "magicsoup_tpu_torch/csrc/threefry.cu",
+        # no Pallas kernel: the draws of the JAX package's XLA programs,
+        # first of them the token store's uniform
+        "replaces": "magicsoup_tpu/genomes.py:196",
+        "shape": threefry["shape"],
+        "launches": per_path["token_classic"],
+        "launches_per_path": per_path,
+        "max_abs_err": 0,
+        "ms": threefry["ms"],
+        "plain_ms": threefry["plain_ms"],
+        "bound_ms": threefry["bound_ms"],
+        "bound_by": threefry["bound_by"],
+        "library_ms": None,
+        "ok": True,
     }
 
 
@@ -1360,6 +1597,8 @@ def main() -> None:
     print(json.dumps({"sweep": sweep}))
     ladder = _ladder(torch)
     print(json.dumps({"kernel_bisect": ladder}))
+    threefry = _threefry(torch)
+    print(json.dumps({"threefry": threefry}))
 
     world, spawn_s = _workload(torch)
     p, s = world.kinetics.max_proteins, 2 * world.n_molecules
@@ -1379,16 +1618,27 @@ def main() -> None:
     del world
     print(json.dumps({"workload": work}))
 
+    token_world, token_spawn_s = _workload(torch, genome_backend="token")
+    torch.cuda.reset_peak_memory_stats()
+    token_work = _run_steps(torch, token_world)
+    token_work["spawn_s"] = token_spawn_s
+    token_work["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+    token_work["string_steps_per_s"] = work["steps_per_s"]
+    del token_world
+    print(json.dumps({"token_workload": token_work}))
+
     with _Taps() as taps:
         stepper = {}
         for k in (1, 4):
             stepper[f"K{k}"] = _stepper_run(torch, taps, k, capture=k == 1)
             if k == 1:
                 stepper_inputs = taps.inputs
+        stepper["token_K1"] = _stepper_run(torch, taps, 1, capture=False, genome_backend="token")
         print(json.dumps({"stepper": stepper}))
         fleet = _fleet_run(torch, taps)
         fleet_inputs = taps.inputs
-        print(json.dumps({"fleet": fleet}))
+        fleet_token = _fleet_run(torch, taps, genome_backend="token")
+        print(json.dumps({"fleet": {"string": fleet, "token": fleet_token}}))
     print(json.dumps({"flags_per_window": taps.flags}))
     if taps.unexpected():
         raise AssertionError(f"flags other than dead_param_residue tripped: {taps.unexpected()}")
@@ -1432,13 +1682,23 @@ def main() -> None:
 
     bench = _microbench(torch)
     print(json.dumps({"integrator_bench": bench}))
+    genome_ops = _genome_ops()
+    print(json.dumps({"genome_ops": genome_ops}))
     det = _det_on_card(torch)
     print(json.dumps({"det_on_card": det}))
 
     from magicsoup_tpu_torch.performance import card_line
 
     card = card_line()
-    print(json.dumps({"kernels": [kernel, k2, _k3_entry(ladder)]}))
+    per_path = {
+        "token_classic": token_work["threefry_launches"],
+        "classic": work["threefry_launches"],
+        **{f"stepper_{key}": v["threefry_launches"] for key, v in stepper.items()},
+        "fleet": fleet["threefry_launches"],
+        "token_fleet": fleet_token["threefry_launches"],
+    }
+    print(json.dumps({"kernels": [kernel, k2, _k3_entry(ladder),
+                                  _threefry_entry(threefry, per_path)]}))
     print(card)
     print(json.dumps({
         "ok": True,

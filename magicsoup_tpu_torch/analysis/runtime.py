@@ -9,7 +9,14 @@ counters have no role in eager PyTorch.
   groups they carried (one each, without cross-rung fusion);
 - ``integrator_dispatches_<backend>`` counts dispatches that ran the
   integrator through that backend: one per solo stepper dispatch and one
-  per fleet group dispatch, whatever the megastep or the group size.
+  per fleet group dispatch, whatever the megastep or the group size;
+- in :func:`genome_stats`, ``genome_decode_calls`` / ``genome_decode_rows``
+  count token -> string decodes of a token genome store and the rows
+  they decoded (the JAX package's ``note_genome_decode``; a warm steady
+  state decodes nothing), and ``genome_fetches`` /
+  ``genome_fetch_bytes`` count whole-store host snapshots
+  (``GenomeStore.host_arrays``, one synchronizing device->host copy
+  each) and the bytes they moved.
 """
 import threading
 
@@ -17,6 +24,10 @@ _lock = threading.Lock()
 _dispatches = 0
 _fused_groups = 0
 _integrator_dispatches: dict[str, int] = {}
+_genome_decode_calls = 0
+_genome_decode_rows = 0
+_genome_fetches = 0
+_genome_fetch_bytes = 0
 
 
 def note_integrator_dispatch(backend: str, n: int = 1) -> None:
@@ -33,6 +44,22 @@ def note_dispatch(dispatches: int = 0, fused_groups: int = 0) -> None:
         _fused_groups += fused_groups
 
 
+def note_genome_decode(rows: int = 0) -> None:
+    """Count one token -> string decode of ``rows`` genome rows."""
+    global _genome_decode_calls, _genome_decode_rows
+    with _lock:
+        _genome_decode_calls += 1
+        _genome_decode_rows += rows
+
+
+def note_genome_fetch(nbytes: int) -> None:
+    """Count one host snapshot of a token genome store of ``nbytes``."""
+    global _genome_fetches, _genome_fetch_bytes
+    with _lock:
+        _genome_fetches += 1
+        _genome_fetch_bytes += nbytes
+
+
 def snapshot() -> dict[str, int]:
     """Every counter as one flat dict, read under one lock."""
     with _lock:
@@ -42,10 +69,24 @@ def snapshot() -> dict[str, int]:
     return out
 
 
+def genome_stats() -> dict[str, int]:
+    """The token genome store's counters, read under one lock."""
+    with _lock:
+        return {
+            "genome_decode_calls": _genome_decode_calls,
+            "genome_decode_rows": _genome_decode_rows,
+            "genome_fetches": _genome_fetches,
+            "genome_fetch_bytes": _genome_fetch_bytes,
+        }
+
+
 def reset_counters() -> None:
     """Zero every counter (tests assert absolute values after it)."""
-    global _dispatches, _fused_groups
+    global _dispatches, _fused_groups, _genome_decode_calls, _genome_decode_rows
+    global _genome_fetches, _genome_fetch_bytes
     with _lock:
         _dispatches = 0
         _fused_groups = 0
+        _genome_decode_calls = _genome_decode_rows = 0
+        _genome_fetches = _genome_fetch_bytes = 0
         _integrator_dispatches.clear()

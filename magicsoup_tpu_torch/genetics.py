@@ -155,6 +155,19 @@ class Genetics:
         """
         return translate_genomes_flat(genomes, self.tables)
 
+    def translate_tokens_flat(
+        self, tokens, lengths
+    ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """
+        :meth:`translate_genomes_flat` for host token rows (``(b, G)`` int8
+        in the ``TCGA`` -> ``0..3`` code of :mod:`magicsoup_tpu_torch.
+        genomes`) and their lengths.  The decode is the string boundary:
+        device-resident paths reach it only for phenotype-cache misses.
+        """
+        from magicsoup_tpu_torch.genomes import decode_tokens
+
+        return translate_genomes_flat(decode_tokens(tokens, lengths), self.tables)
+
     def translate_genomes(self, genomes: list[str]) -> list[list[ProteinSpecType]]:
         """
         Translate all genomes into proteomes.
@@ -217,7 +230,8 @@ class PhenotypeCache:
     """
     Content-addressed genome -> phenotype cache, LRU-bounded.
 
-    Entries are keyed by the genome STRING and hold the flat translation
+    Entries are keyed by the genome STRING (:meth:`lookup`) or by the
+    content hash of a token row (:meth:`lookup_tokens`) and hold the flat translation
     buffers plus packed dense token rows per assembly rung, so a batch
     with repeated genomes (spawn bursts from shared seeds, division
     daughters, mutation no-ops) translates and packs each unique genome
@@ -298,6 +312,47 @@ class PhenotypeCache:
         self.hits += n_hits
         self.misses += len(misses)
         return [entries[g] for g in genomes]
+
+    def lookup_tokens(self, tokens, lengths, idxs=None, hashes=None) -> list[PhenotypeEntry]:
+        """Entries keyed by token-row content hashes
+        (:func:`magicsoup_tpu_torch.genomes.token_hashes`) instead of
+        genome strings: only cache misses decode their rows (counted by
+        ``analysis.runtime.note_genome_decode``), so a device-resident
+        world's steady state translates without a string.  ``idxs``
+        selects rows (all by default); ``hashes`` skips rehashing."""
+        from magicsoup_tpu_torch.analysis import runtime
+        from magicsoup_tpu_torch.genomes import decode_tokens, token_hashes
+
+        tokens = np.asarray(tokens)
+        lengths = np.asarray(lengths)
+        idxs = list(range(len(lengths))) if idxs is None else list(idxs)
+        if hashes is None:
+            hashes = token_hashes(tokens, lengths, idxs)
+        entries: dict[bytes, PhenotypeEntry] = {}
+        miss_keys: list[bytes] = []
+        miss_rows: list[int] = []
+        seen: set[bytes] = set()
+        for i, h in zip(idxs, hashes):
+            if h in seen:
+                continue
+            seen.add(h)
+            e = self._entries.get(h)
+            if e is None:
+                miss_keys.append(h)
+                miss_rows.append(i)
+            else:
+                self._entries.move_to_end(h)
+                entries[h] = e
+        if miss_keys:
+            genomes = decode_tokens(tokens[miss_rows], lengths[miss_rows])
+            runtime.note_genome_decode(len(miss_rows))
+            for h, e in zip(miss_keys, self._translate_misses(genomes)):
+                entries[h] = e
+                self._store(h, e)
+        n_hits = len(hashes) - len(miss_keys)
+        self.hits += n_hits
+        self.misses += len(miss_keys)
+        return [entries[h] for h in hashes]
 
     def dense_rows(
         self, entries: list[PhenotypeEntry], p_cap: int, d_cap: int

@@ -6,7 +6,9 @@ semantics and defaults (p=1e-6 per bp, 40% indels of which 66% deletions;
 strand breaks at p=1e-7 per bp), same return shape (only changed sequences,
 with their input indices).  Backed by the port's copy of the C++/OpenMP
 genome engine (Python fallback available); a ``seed`` gives a reproducible
-stream, the same one the JAX package draws.
+stream, the same one the JAX package draws.  The ``*_tokens`` functions
+are the token path: the programs of :mod:`magicsoup_tpu_torch.genomes`
+over packed token tensors.
 """
 import random
 
@@ -61,3 +63,22 @@ def recombinations(
     if seed is None:
         seed = random.SystemRandom().randrange(2**63)
     return _engine.recombinations(seq_pairs, p=p, seed=seed)
+
+
+def point_mutations_tokens(tokens, lengths, **kwargs):
+    """Counterpart of :func:`point_mutations` over packed token tensors on
+    their device: one program mutates the whole population in place of
+    the per-string host loop.  Returns ``(tokens, lengths, changed)``; see
+    :func:`magicsoup_tpu_torch.genomes.point_mutations_tokens`."""
+    from magicsoup_tpu_torch import genomes
+
+    return genomes.point_mutations_tokens(tokens, lengths, **kwargs)
+
+
+def recombinations_tokens(tokens, lengths, pairs, **kwargs):
+    """Counterpart of :func:`recombinations` over packed token tensors and
+    an ``(n, 2)`` row-pair index array.  Returns ``(tokens, lengths,
+    changed)``; see :func:`magicsoup_tpu_torch.genomes.recombinations_tokens`."""
+    from magicsoup_tpu_torch import genomes
+
+    return genomes.recombinations_tokens(tokens, lengths, pairs, **kwargs)

@@ -14,7 +14,10 @@ JAX package's on the CPU.
 
 The JAX package pads index batches to powers of two so that XLA compiles
 few variants; PyTorch compiles nothing, so batches here keep their length
-and need no out-of-bounds padding.
+and need no out-of-bounds padding.  The one exception is the token genome
+programs (:mod:`magicsoup_tpu_torch.genomes`): they draw random numbers
+over the padded index list, so its length is part of their result, and
+they pad with :func:`pad_idxs` as the JAX package does.
 """
 from typing import NamedTuple
 
@@ -64,6 +67,15 @@ def pad_pow2(n: int, minimum: int = 8) -> int:
     """Smallest power of two >= max(n, minimum)"""
     m = max(n, minimum)
     return 1 << (m - 1).bit_length()
+
+
+def pad_idxs(idxs: np.ndarray, oob: int, minimum: int = IDX_BLOCK) -> np.ndarray:
+    """Pad an int index array to a power-of-two length (at least
+    ``minimum``) with the out-of-bounds fill ``oob`` (int32)."""
+    n = pad_pow2(len(idxs), minimum)
+    out = np.full(n, oob, dtype=np.int32)
+    out[: len(idxs)] = idxs
+    return out
 
 
 def quantize_rows(n: int, cap: int, quantum: int = ROW_QUANTUM) -> int:

@@ -29,8 +29,15 @@ Semantics against the serial loop are the JAX package's (phenotype lag,
 spawn-decision lag, slot indices between flushes, bounded placement);
 with ``lag`` an integer a seed reproduces its trajectory exactly.
 
+A token world (``genome_backend="token"``) keeps its genomes on the
+device: the stepper checks out a clone of the world's
+:class:`~magicsoup_tpu_torch.genomes.GenomeStore`, replays spawns,
+divisions and compactions as store programs, runs evolution inline as the
+token programs (no evolution worker; the draws are threefry kernel
+launches on the card), and hands the store's tensors back at ``flush()``.
+
 Left out of this port: mesh-placed worlds, the telemetry recorder, chaos
-and fault hooks, dispatch retries and the token genome backend.
+and fault hooks and dispatch retries.
 """
 import contextlib
 import time
@@ -848,7 +855,9 @@ class PipelinedStepper:
         overlap_evolution: Run recombination and point mutations on a
             worker thread, overlapping the next dispatch; at fixed lag the
             resulting pushes ride the second-next dispatch (seed-exact, but
-            a different trajectory than with the flag off).
+            a different trajectory than with the flag off).  Token worlds
+            run evolution inline whatever the flag, as the JAX package's
+            do: their programs already run on the device.
         sentinel_policy: Host reaction to the health and invariant lanes:
             ``"warn"``, ``"quarantine"`` or ``"rollback"``.
         dispatch_retries: Must be 0: dispatch retries are not ported.
@@ -891,8 +900,6 @@ class PipelinedStepper:
             raise ValueError("mesh-placed worlds are not ported; use one device")
         if getattr(world, "telemetry", None) is not None:
             raise NotImplementedError("the telemetry recorder is not ported")
-        if world._genome_store is not None:
-            raise NotImplementedError("the token genome backend is not ported")
         if dispatch_retries:
             raise ValueError("dispatch_retries > 0 is not ported; pass 0")
         if lag != "auto" and (not isinstance(lag, int) or lag < 0):
@@ -976,7 +983,7 @@ class PipelinedStepper:
             weakref.finalize(self, self._fetcher.close)
         else:
             self._fetcher = None
-        if overlap_evolution:
+        if overlap_evolution and world._genome_store is None:
             import weakref
 
             self._evo_worker = _Worker("ms-stepper-evo")
@@ -1016,7 +1023,15 @@ class PipelinedStepper:
             n_rows=torch.full((1,), w.n_cells, dtype=torch.int64, device=dev),
             key=key,
         )
-        self._genomes = list(w.cell_genomes) + [""] * (self._cap - w.n_cells)
+        # a token world's genomes stay on the device: the stepper checks out
+        # a tensor-sharing clone of its store (no decode, no copy) and
+        # replays genome events as store programs; the host list is None
+        if w._genome_store is not None:
+            self._token_store = w._genome_store.clone()
+            self._genomes = None
+        else:
+            self._token_store = None
+            self._genomes = list(w.cell_genomes) + [""] * (self._cap - w.n_cells)
         self._labels: list = list(w.cell_labels) + [""] * (self._cap - w.n_cells)
         self._lifetimes = np.zeros(self._cap, dtype=np.int32)
         self._lifetimes[: w.n_cells] = w.cell_lifetimes
@@ -1409,17 +1424,27 @@ class PipelinedStepper:
         # 0. spawns (allocation order matches the device: queue order)
         n_spawned = 0
         if spawn_genomes:
+            tok_rows: list[int] = []
+            tok_genomes: list[str] = []
             for i, (g, lab) in enumerate(zip(spawn_genomes, spawn_labels)):
                 if not out.spawn_ok[i]:
                     continue
                 row = self._n_rows + n_spawned
                 n_spawned += 1
-                self._genomes[row] = g
+                if self._token_store is not None:
+                    tok_rows.append(row)
+                    tok_genomes.append(g)
+                else:
+                    self._genomes[row] = g
                 self._labels[row] = lab
                 self._lifetimes[row] = 0
                 self._divisions[row] = 0
                 self._positions[row] = out.spawn_pos[i]
                 self._alive[row] = True
+            if tok_rows:
+                # one encode and scatter per record (the token replay's
+                # string import boundary)
+                self._token_store.set_rows(tok_rows, tok_genomes)
             self._n_rows += n_spawned
             self.stats["spawned"] += n_spawned
             self.stats["spawn_drops"] += len(spawn_genomes) - n_spawned
@@ -1432,11 +1457,18 @@ class PipelinedStepper:
         # 2. divisions (parents ascending, children appended in order).
         # The device copied the parent's params as of the dispatch; if
         # the parent's genome changed since, the child needs its own push
-        repush: dict[int, str] = {}
+        # (token mode: the value is None, the store row is the content)
+        repush: dict[int, str | None] = {}
+        div_parents: list[int] = []
+        div_children: list[int] = []
         for i in range(n_placed):
             p = int(out.parents[i])
             row = self._n_rows + i
-            self._genomes[row] = self._genomes[p]
+            if self._token_store is not None:
+                div_parents.append(p)
+                div_children.append(row)
+            else:
+                self._genomes[row] = self._genomes[p]
             self._labels[row] = self._labels[p]
             self._divisions[p] += 1
             self._divisions[row] = self._divisions[p]
@@ -1445,9 +1477,12 @@ class PipelinedStepper:
             self._positions[row] = out.child_pos[i]
             self._alive[row] = True
             if self._last_change[p] > change_seq:
-                repush[row] = self._genomes[row]
+                repush[row] = None if self._genomes is None else self._genomes[row]
             else:
                 self._last_change[row] = self._last_change[p]
+        if div_children:
+            # parent -> child genome copies stay on the device
+            self._token_store.copy_rows(div_parents, div_children)
         self._n_rows += n_placed
         self.stats["divisions"] += n_placed
         self.stats["division_drops"] += out.n_candidates - out.n_attempted
@@ -1496,7 +1531,10 @@ class PipelinedStepper:
                 )
 
     def _apply_perm(self, perm: np.ndarray, n_keep: int) -> None:
-        self._genomes = [self._genomes[i] for i in perm]
+        if self._token_store is not None:
+            self._token_store.permute(perm, n_keep)
+        else:
+            self._genomes = [self._genomes[i] for i in perm]
         self._labels = [self._labels[i] for i in perm]
         self._lifetimes = self._lifetimes[perm]
         self._divisions = self._divisions[perm]
@@ -1505,7 +1543,8 @@ class PipelinedStepper:
         self._alive = np.zeros(self._cap, dtype=bool)
         self._alive[:n_keep] = True
         for i in range(n_keep, self._cap):
-            self._genomes[i] = ""
+            if self._genomes is not None:
+                self._genomes[i] = ""
             self._labels[i] = ""
         self._lifetimes[n_keep:] = 0
         self._divisions[n_keep:] = 0
@@ -1541,13 +1580,57 @@ class PipelinedStepper:
                 changed[int(rows[i])] = g
         return changed
 
-    def _submit_evolution(self, repush: dict[int, str]) -> None:
+    def _evolution_compute_tokens(
+        self, rows: np.ndarray, pos_rows: np.ndarray, repush_rows
+    ) -> list[int]:
+        """Token-mode evolution: the phase of :meth:`_evolution_compute`
+        as two store programs on the device, run inline; returns the
+        changed rows (their content lives in the store).  The seeds are
+        drawn from ``self._rng`` in the string path's order
+        (recombination first), so both backends consume it alike."""
+        from magicsoup_tpu_torch import genomes as _genomes
+
+        store = self._token_store
+        changed_rows: set[int] = {int(r) for r in repush_rows}
+        det = self.world.deterministic
+        if len(rows) > 1 and self.p_recombination > 0:
+            pairs_k = moore_pairs(pos_rows, self.world.map_size)
+            if len(pairs_k):
+                pair_rows = rows[pairs_k]
+                seed = int(self._rng.integers(2**63))
+                store.ensure_length_cap(_genomes.length_capacity(2 * store.max_length()))
+                t, lens, ch = _genomes.recombinations_tokens(
+                    store.tokens, store.lengths, pair_rows,
+                    p=self.p_recombination, seed=seed, det=det,
+                )
+                store.apply(t, lens)
+                changed_rows.update(np.nonzero(fetch_host(ch))[0].tolist())
+        if len(rows) and self.p_mutation > 0:
+            store.maybe_regrow()
+            live = np.zeros(store.capacity, dtype=bool)
+            live[rows] = True
+            seed = int(self._rng.integers(2**63))
+            t, lens, ch = _genomes.point_mutations_tokens(
+                store.tokens, store.lengths, p=self.p_mutation, p_indel=self.p_indel,
+                p_del=self.p_del, seed=seed, live=to_device(live, store.device), det=det,
+            )
+            store.apply(t, lens)
+            changed_rows.update(np.nonzero(fetch_host(ch))[0].tolist())
+        return sorted(changed_rows)
+
+    def _submit_evolution(self, repush: dict[int, "str | None"]) -> None:
         """Start the evolution phase on the just-replayed state: on the
-        worker when overlap is on, inline otherwise."""
+        worker when overlap is on, inline otherwise; a token world's
+        always inline."""
         from functools import partial
 
         rows = np.nonzero(self._alive)[0]
         pos_rows = self._positions[rows]
+        if self._token_store is not None:
+            # the store already holds the new rows: only their refresh is
+            # queued, its content read from the store when it is dispatched
+            self._queue_refresh(None, self._evolution_compute_tokens(rows, pos_rows, list(repush)))
+            return
         if self._evo_worker is not None:
             self._evo_future = self._evo_worker.submit(
                 partial(self._evolution_compute, rows, pos_rows, repush)
@@ -1564,31 +1647,47 @@ class PipelinedStepper:
         self._apply_evolution(fut.result(timeout=300.0))
 
     def _apply_evolution(self, changed: dict[int, str]) -> None:
-        """Write the changed genomes and queue their phenotype refresh
-        (held in the push buffer while a compaction is in flight)."""
+        """Write the changed genomes and queue their phenotype refresh."""
         for r, g in changed.items():
             self._genomes[r] = g
-        if changed:
-            self.stats["genome_changes"] += len(changed)
-            rows_c = sorted(changed)
-            genomes_c = [changed[r] for r in rows_c]
-            self._change_seq += 1
-            self._last_change[rows_c] = self._change_seq
-            if self._compact_outstanding:
-                self._push_buffer.append((genomes_c, rows_c, self._change_seq))
-            else:
-                self._dispatch_push(genomes_c, rows_c, self._change_seq)
+        rows_c = sorted(changed)
+        self._queue_refresh([changed[r] for r in rows_c], rows_c)
+
+    def _queue_refresh(self, genomes: list[str] | None, rows: list[int]) -> None:
+        """Queue the phenotype refresh of changed rows (held in the push
+        buffer while a compaction is in flight); ``genomes=None`` is the
+        token spelling: the content is read from the store when the push
+        is dispatched, so a row changed twice pushes its final content."""
+        if not rows:
+            return
+        self.stats["genome_changes"] += len(rows)
+        self._change_seq += 1
+        self._last_change[rows] = self._change_seq
+        if self._compact_outstanding:
+            self._push_buffer.append((genomes, rows, self._change_seq))
+        else:
+            self._dispatch_push(genomes, rows, self._change_seq)
 
     def _dispatch_push(self, genomes: list[str], rows: list[int], seq: int) -> None:
         """Queue a phenotype refresh; it rides the next dispatch."""
         self._push_queue.append((genomes, rows, seq))
 
-    def _apply_push_now(self, genomes: list[str], rows: list[int], seq: int) -> None:
-        """Apply one refresh batch on its own (oversized bursts, flush)."""
-        entries = self.world.phenotypes.lookup(genomes)
+    def _apply_push_now(self, genomes: list[str] | None, rows: list[int], seq: int) -> None:
+        """Apply one refresh batch on its own (oversized bursts, flush);
+        ``genomes=None`` is the token spelling (content from the store)."""
+        entries = self._push_entries(genomes, rows)
         self.kin.set_cell_params_cached(rows, entries, self.world.phenotypes)
         self._dispatched_seq = max(self._dispatched_seq, seq)
         self.stats["pushes"] += 1
+
+    def _push_entries(self, genomes: list[str] | None, rows: list[int]):
+        """Phenotype entries for one refresh batch: string-keyed on the
+        string backend, hash-keyed from the store on the token backend
+        (no decode unless a row misses)."""
+        if genomes is not None:
+            return self.world.phenotypes.lookup(genomes)
+        tokens, lengths = self._token_store.host_arrays()
+        return self.world.phenotypes.lookup_tokens(tokens, lengths, rows)
 
     def _take_ride_push(self):
         """Pop queued refreshes (in order) up to the riding block; returns
@@ -1611,13 +1710,17 @@ class PipelinedStepper:
             total += len(r)
         if not taken:
             return None
-        merged: dict[int, str] = {}
+        # a row in several batches: the last queued genome wins; token
+        # batches carry no content (the store row is final), so for them
+        # this is a union of rows
+        merged: dict[int, str | None] = {}
         top_seq = self._dispatched_seq
         for g, r, seq in taken:
-            merged.update(zip(r, g))
+            merged.update(zip(r, g if g is not None else [None] * len(r)))
             top_seq = max(top_seq, seq)
         rows = sorted(merged)
-        entries = self.world.phenotypes.lookup([merged[r] for r in rows])
+        genomes = None if self._token_store is not None else [merged[r] for r in rows]
+        entries = self._push_entries(genomes, rows)
         self._dispatched_seq = top_seq
         self.stats["pushes"] += 1
         return entries, rows
@@ -1654,7 +1757,11 @@ class PipelinedStepper:
 
         w = self.world
         w.n_cells = n_keep
-        w.cell_genomes = [self._genomes[i] for i in range(n_keep)]
+        if self._token_store is not None:
+            # hand the tensors back wholesale: no decode, no encode
+            w._genome_store.adopt(self._token_store.tokens, self._token_store.lengths)
+        else:
+            w.cell_genomes = [self._genomes[i] for i in range(n_keep)]
         w.cell_labels = [self._labels[i] for i in range(n_keep)]
         w._np_positions = self._positions.copy()
         w._np_lifetimes = self._lifetimes.copy()

@@ -12,10 +12,14 @@ indices, molecules are ordered as in :class:`Chemistry`.
 - **capacity pools**: device tensors are allocated at a power-of-two slot
   capacity (>= 64) and grown amortized; kill is a permutation gather
   (stable compaction), divide/spawn write rows.
-- **host/device split**: genome strings, labels, positions, the boolean
-  cell map, lifetimes and divisions live on the host (numpy / lists); the
-  molecule map, intracellular molecules, a mirror of the positions and
-  all kinetic parameter tensors live on ``device``.
+- **host/device split**: labels, positions, the boolean cell map,
+  lifetimes and divisions live on the host (numpy / lists); the molecule
+  map, intracellular molecules, a mirror of the positions and all kinetic
+  parameter tensors live on ``device``.  Genomes are host strings
+  (``genome_backend="string"``) or a packed token tensor on ``device``
+  (``"token"``, :class:`~magicsoup_tpu_torch.genomes.GenomeStore`),
+  mutated and recombined by the device programs of
+  :mod:`magicsoup_tpu_torch.genomes`.
 - **explicit seeding**: one ``seed`` drives placement, token maps and
   mutations, drawn from ``random.Random(seed)`` and
   ``np.random.default_rng(seed)`` in the JAX package's order, so a port
@@ -32,6 +36,7 @@ from contextlib import nullcontext
 import numpy as np
 import torch
 
+from magicsoup_tpu_torch import genomes as _genomes
 from magicsoup_tpu_torch.containers import Chemistry
 from magicsoup_tpu_torch.genetics import Genetics, PhenotypeCache
 from magicsoup_tpu_torch.kinetics import Kinetics
@@ -49,6 +54,17 @@ _MIN_CAPACITY = 64
 # --------------------------------------------------------------------- #
 # device-state programs (slot-capacity tensors, in PyTorch)             #
 # --------------------------------------------------------------------- #
+
+
+def _last_wins(idxs, genomes: list[str]) -> tuple[np.ndarray, list[str]]:
+    """Slots (int32) and genomes with each duplicate slot's earlier
+    entries dropped: the last wins, the order is kept."""
+    idxs_arr = np.asarray(idxs, dtype=np.int32)
+    if len(np.unique(idxs_arr)) != len(idxs_arr):
+        _, keep = np.unique(idxs_arr[::-1], return_index=True)
+        keep = np.sort(len(idxs_arr) - 1 - keep)
+        idxs_arr, genomes = idxs_arr[keep], [genomes[i] for i in keep]
+    return idxs_arr, genomes
 
 
 def _map_add(molecule_map, xs, ys, values):
@@ -138,6 +154,11 @@ class World:
             the numeric mode and the device.
         phenotype_cache_size: Max entries of the genome->phenotype LRU
             cache; ``0`` disables cross-call caching.
+        genome_backend: ``"string"`` keeps genomes as a host list of
+            strings; ``"token"`` keeps them on ``device`` as a packed
+            token tensor evolved by device programs, so strings exist only
+            at the import/export boundary (spawn, ``cell_genomes``,
+            ``genome_of``).
 
     State is exposed with the reference's names — ``cell_genomes``,
     ``cell_labels``, ``cell_map``, ``cell_positions``, ``cell_lifetimes``,
@@ -158,6 +179,7 @@ class World:
         seed: int | None = None,
         integrator: str | None = None,
         phenotype_cache_size: int = 16384,
+        genome_backend: str = "string",
     ):
         self.device = resolve_device(device, "World")
         if seed is None:
@@ -207,9 +229,14 @@ class World:
             _diff.degradation_factors([d.half_life for d in mols])
         )
 
-        # host-side state; genomes are host strings (the token genome
-        # store of the JAX package is not ported)
+        if genome_backend not in ("string", "token"):
+            raise ValueError(
+                f"genome_backend must be 'string' or 'token', got {genome_backend!r}"
+            )
+        self.genome_backend = genome_backend
         self._genome_store = None
+
+        # host-side state
         self.n_cells = 0
         self._genomes_list: list[str] = []
         self.cell_labels: list[str] = []
@@ -244,15 +271,31 @@ class World:
 
     @property
     def cell_genomes(self) -> list[str]:
-        """Genome strings of all living cells (the mutable host list)."""
+        """Genome strings of all living cells: on the string backend the
+        mutable host list; on the token backend a decoded export view of
+        the device store, cached per store version (read-only: assign a
+        whole list, or use ``update_cells``/``spawn_cells``)."""
+        if self._genome_store is not None:
+            return self._genome_store.decoded(self.n_cells)
         return self._genomes_list
 
     @cell_genomes.setter
     def cell_genomes(self, value):
-        self._genomes_list = list(value)
+        if self._genome_store is not None:
+            self._genome_store.set_all(list(value))
+        else:
+            self._genomes_list = list(value)
+
+    @property
+    def genome_store(self):
+        """The device :class:`~magicsoup_tpu_torch.genomes.GenomeStore`
+        (token backend; ``None`` on the string backend)."""
+        return self._genome_store
 
     def genome_of(self, idx: int) -> str:
-        """One cell's genome string."""
+        """One cell's genome string (token backend: decodes that row)."""
+        if self._genome_store is not None:
+            return self._genome_store.decode_row(idx)
         return self._genomes_list[idx]
 
     @property
@@ -394,6 +437,11 @@ class World:
         cm[: self._capacity] = self._cell_molecules
         self._cell_molecules = cm
         self._capacity = cap
+        if self.genome_backend == "token":
+            if self._genome_store is None:
+                self._genome_store = _genomes.GenomeStore(cap, device=self.device)
+            else:
+                self._genome_store.grow_capacity(cap)
         self._sync_positions()
         self.kinetics.ensure_capacity(n_cells=cap)
 
@@ -503,7 +551,12 @@ class World:
         new_idxs = list(range(self.n_cells, self.n_cells + n_new))
         self._ensure_capacity(self.n_cells + n_new)
         self.n_cells += n_new
-        self._genomes_list.extend(genomes)
+        if self._genome_store is not None:
+            # the string import boundary: encode once; the encoded rows feed
+            # both the device scatter and the hash-keyed translation below
+            g_rows, g_lens = self._genome_store.set_rows(new_idxs, genomes)
+        else:
+            self._genomes_list.extend(genomes)
         self.cell_labels.extend(randstr(n=12, rng=self._rng) for _ in range(n_new))
 
         self._np_cell_map[free_pos[:, 0], free_pos[:, 1]] = True
@@ -521,7 +574,10 @@ class World:
         new_cm[new_idxs[0] : new_idxs[-1] + 1] += pickup.T
         self._cell_molecules = new_cm
 
-        self._update_cell_params(genomes=genomes, idxs=new_idxs)
+        if self._genome_store is not None:
+            self._update_cell_params_rows(new_idxs, g_rows, g_lens)
+        else:
+            self._update_cell_params(genomes=genomes, idxs=new_idxs)
         return new_idxs
 
     _MOORE_DX = np.array([-1, -1, -1, 0, 0, 1, 1, 1], dtype=np.int64)
@@ -616,7 +672,11 @@ class World:
         self._ensure_capacity(self.n_cells + n_new)
         self.n_cells += n_new
 
-        self._genomes_list.extend([self._genomes_list[d] for d in parent_idxs])
+        if self._genome_store is not None:
+            # parent -> child copies stay on the device
+            self._genome_store.copy_rows(parent_idxs, child_idxs)
+        else:
+            self._genomes_list.extend([self._genomes_list[d] for d in parent_idxs])
         self.cell_labels.extend([self.cell_labels[d] for d in parent_idxs])
 
         child_pos_arr = np.array(child_pos, dtype=np.int32)
@@ -642,6 +702,14 @@ class World:
         """Update existing cells with new genomes and re-derive their
         proteomes."""
         if len(genome_idx_pairs) == 0:
+            return
+        if self._genome_store is not None:
+            # duplicate slots resolve before the scatter
+            idxs_arr, genomes = _last_wins(
+                [i for _, i in genome_idx_pairs], [g for g, _ in genome_idx_pairs]
+            )
+            g_rows, g_lens = self._genome_store.set_rows(idxs_arr.tolist(), genomes)
+            self._update_cell_params_rows(idxs_arr, g_rows, g_lens)
             return
         for genome, idx in genome_idx_pairs:
             self._genomes_list[idx] = genome
@@ -691,9 +759,13 @@ class World:
         self._sync_positions()
 
         kill_set = set(kill.tolist())
-        self._genomes_list = [
-            g for i, g in enumerate(self._genomes_list) if i not in kill_set
-        ]
+        if self._genome_store is not None:
+            # the compaction permutation of every other cell tensor
+            self._genome_store.permute(perm, n_keep)
+        else:
+            self._genomes_list = [
+                g for i, g in enumerate(self._genomes_list) if i not in kill_set
+            ]
         self.cell_labels = [
             lab for i, lab in enumerate(self.cell_labels) if i not in kill_set
         ]
@@ -808,6 +880,29 @@ class World:
     ):
         """Point-mutate cell genomes, then update changed cells"""
         seed = int(self._nprng.integers(2**63))
+        if self._genome_store is not None:
+            store = self._genome_store
+            # regrow G before the live region reaches it, so the program's
+            # capacity truncation stays a never-hit backstop
+            store.maybe_regrow()
+            live = np.zeros(store.capacity, dtype=bool)
+            if cell_idxs is None:
+                live[: self.n_cells] = True
+            else:
+                live[np.asarray(cell_idxs, dtype=np.int64)] = True
+            tokens, lengths, changed = _genomes.point_mutations_tokens(
+                store.tokens,
+                store.lengths,
+                p=p,
+                p_indel=p_indel,
+                p_del=p_del,
+                seed=seed,
+                live=live,
+                det=self.deterministic,
+            )
+            store.apply(tokens, lengths)
+            self._update_cell_params_tokens(np.nonzero(fetch_host(changed)[: self.n_cells])[0])
+            return
         if cell_idxs is None:
             mutated = _engine.point_mutations(
                 self.cell_genomes, p=p, p_indel=p_indel, p_del=p_del, seed=seed
@@ -827,6 +922,24 @@ class World:
         cells."""
         pair_arr = self._neighbor_pairs(cell_idxs=cell_idxs)
         seed = int(self._nprng.integers(2**63))
+        if self._genome_store is not None:
+            store = self._genome_store
+            if len(pair_arr) == 0:
+                return
+            # a tail exchange can at most double a genome: pre-grow G so
+            # the program's capacity clamp stays a never-hit backstop
+            store.ensure_length_cap(_genomes.length_capacity(2 * store.max_length()))
+            tokens, lengths, changed = _genomes.recombinations_tokens(
+                store.tokens,
+                store.lengths,
+                pair_arr,
+                p=p,
+                seed=seed,
+                det=self.deterministic,
+            )
+            store.apply(tokens, lengths)
+            self._update_cell_params_tokens(np.nonzero(fetch_host(changed)[: self.n_cells])[0])
+            return
         mutated = _engine.recombinations_indexed(
             self.cell_genomes, pair_arr, p=p, seed=seed
         )
@@ -844,15 +957,35 @@ class World:
     def _update_cell_params(self, genomes: list[str], idxs: list[int]):
         """Translate genomes (through the phenotype cache) and write
         kinetic parameters for these cells; duplicate slots: last wins."""
+        if len(idxs) == 0:
+            return
+        idxs_arr, genomes = _last_wins(idxs, genomes)
+        self._apply_phenotype_entries(idxs_arr, self.phenotypes.lookup(genomes))
+
+    def _update_cell_params_tokens(self, idxs):
+        """Parameter update for store rows already on the device (the
+        programs' changed rows): one cached host snapshot of the store,
+        then hash-keyed translation; only cache misses decode."""
+        idxs_arr = np.unique(np.asarray(idxs, dtype=np.int32))
+        if len(idxs_arr) == 0:
+            return
+        tokens, lengths = self._genome_store.host_arrays()
+        entries = self.phenotypes.lookup_tokens(tokens, lengths, idxs_arr.tolist())
+        self._apply_phenotype_entries(idxs_arr, entries)
+
+    def _update_cell_params_rows(self, idxs, rows, lens):
+        """Parameter update from freshly encoded host rows (the string
+        import boundary: spawn, update): hashes come straight from the
+        rows, with no device round trip."""
         idxs_arr = np.asarray(idxs, dtype=np.int32)
         if len(idxs_arr) == 0:
             return
-        if len(np.unique(idxs_arr)) != len(idxs_arr):
-            _, keep = np.unique(idxs_arr[::-1], return_index=True)
-            keep = np.sort(len(idxs_arr) - 1 - keep)
-            idxs_arr = idxs_arr[keep]
-            genomes = [genomes[i] for i in keep]
-        entries = self.phenotypes.lookup(genomes)
+        self._apply_phenotype_entries(idxs_arr, self.phenotypes.lookup_tokens(rows, lens))
+
+    def _apply_phenotype_entries(self, idxs_arr: np.ndarray, entries) -> None:
+        """The shared tail of the parameter updates: unset empty
+        proteomes, grow the token limits for the whole dispatch, pack in
+        chunks of ``batch_size``."""
         has_prots = np.fromiter(
             (e.n_prots > 0 for e in entries), dtype=bool, count=len(entries)
         )
@@ -872,6 +1005,25 @@ class World:
             self.kinetics.set_cell_params_cached(
                 set_idxs[a:b], set_entries[a:b], self.phenotypes
             )
+
+    def convert_genome_backend(self, backend: str) -> None:
+        """Switch genome storage in place: ``"token"`` packs the host
+        string list into a device store, ``"string"`` decodes it back.
+        Phenotypes and kinetics are untouched: both backends derive the
+        same parameters from the same genomes."""
+        if backend not in ("string", "token"):
+            raise ValueError(f"genome_backend must be 'string' or 'token', got {backend!r}")
+        if backend == self.genome_backend:
+            return
+        if backend == "token":
+            store = _genomes.GenomeStore(max(self._capacity, _MIN_CAPACITY), device=self.device)
+            store.set_all(self._genomes_list)
+            self._genome_store = store
+            self._genomes_list = []
+        else:
+            self._genomes_list = list(self._genome_store.decoded(self.n_cells))
+            self._genome_store = None
+        self.genome_backend = backend
 
     def __repr__(self) -> str:
         kwargs = {

@@ -11,6 +11,9 @@ against solo steppers, all in deterministic mode:
   trajectory as a solo run's, and a fifth world opens a sibling group;
   a capacity growth moves a world to another rung, with its solo
   trajectory;
+- three token worlds (``genome_backend="token"``) in one group: each
+  bit-equal to its solo run and to the JAX fleet, stores included (the
+  counterpart of ``check/differential.py``'s ``token_fleet3``);
 - K2's plain version (the batched grid, per world in tiles of 8) on a
   rank-3 X against the Pallas kernel's batched grid in interpret mode,
   under the fast contract, with world w bit-equal to its B = 1 output.
@@ -70,12 +73,12 @@ def _world(lib, chem, seed: int, **kw):
     return w
 
 
-def _tworld(seed: int):
-    return _world(mt, TCHEM, seed, device="cpu")
+def _tworld(seed: int, **kw):
+    return _world(mt, TCHEM, seed, device="cpu", **kw)
 
 
-def _solo(seed: int, n: int):
-    w = _tworld(seed)
+def _solo(seed: int, n: int, **kw):
+    w = _tworld(seed, **kw)
     st = mt.PipelinedStepper(w, **KW)
     for _ in range(n):
         st.step()
@@ -132,6 +135,29 @@ def test_b3_group_matches_jax_fleet_and_solo(det):
     for s, jw, tw in zip(seeds, jws, tws):
         _assert_same(jw, tw)
         _assert_same(_solo(s, n)[0], tw)
+
+
+def test_token_b3_group_matches_jax_fleet_and_solo(det):
+    seeds, n = (3, 4, 5), 5
+    jf, tf = JFleet(block=4), mt.FleetScheduler(block=4)
+    jws = [_world(ms, JCHEM, s, genome_backend="token") for s in seeds]
+    tws = [_tworld(s, genome_backend="token") for s in seeds]
+    for jw, tw in zip(jws, tws):
+        jf.admit(jw, **KW)
+        tf.admit(tw, **KW)
+    for _ in range(n):
+        jf.step()
+        tf.step()
+    jf.flush()
+    tf.flush()
+    assert sum(lane.stats["genome_changes"] for lane in tf.lanes) > 0
+    for s, jw, tw in zip(seeds, jws, tws):
+        _assert_same(jw, tw)
+        solo = _solo(s, n, genome_backend="token")[0]
+        _assert_same(solo, tw)
+        for ref in (jw.genome_store, solo.genome_store):
+            assert np.array_equal(np.asarray(ref.tokens), tw.genome_store.tokens.numpy())
+            assert np.array_equal(np.asarray(ref.lengths), tw.genome_store.lengths.numpy())
 
 
 def test_retire_readmit_and_sibling_groups(det):

@@ -1,6 +1,7 @@
 """
-The CUDA sources of the integrator kernel (``csrc/integrate.cu``) and of
-its ladder (``csrc/bisect.cu``), compiled with g++ against a CPU stand-in
+The CUDA sources of the integrator kernel (``csrc/integrate.cu``), of
+its ladder (``csrc/bisect.cu``) and of the threefry draw
+(``csrc/threefry.cu``), compiled with g++ against a CPU stand-in
 for the CUDA runtime (``torch_data/cuda_emu/cuda_runtime.h``: each CTA
 runs as one thread per CUDA thread, with real barriers) and held against
 their plain versions on the CPU.  So the kernels' logic -- the staging of
@@ -11,8 +12,11 @@ side's shared-memory bytes against the Python launch plan's.
 glibc's expf/logf round differently from the card's, so the outputs are
 held to the fast contract; bits are compared only between launches of
 the emulated kernel (every residency mask, each world against its own
-launch, rung 11 against the kernel).  On the card chip_smoke.py holds
-the kernel itself.
+launch, rung 11 against the kernel).  The threefry kernel's work is
+integer only, so it is held bit-equal to its plain version
+(``ops/prng.py``): both output modes, several keys, counts that are not
+a multiple of the block, and one element.  On the card chip_smoke.py
+holds the kernels themselves.
 """
 import ctypes
 import re
@@ -27,6 +31,7 @@ import torch
 from magicsoup_tpu_torch.interop import params_from_numpy
 from magicsoup_tpu_torch.ops import cuda_bisect as cb
 from magicsoup_tpu_torch.ops import cuda_integrate as ci
+from magicsoup_tpu_torch.ops import cuda_prng, prng
 from magicsoup_tpu_torch.ops.integrate import CellParams
 from magicsoup_tpu_torch.performance import kernel_bisect as kb
 
@@ -166,3 +171,39 @@ def test_emulated_ladder_rungs_hold_their_plain_versions(libs):
         ok, err = cb.holds(cb.RUNGS[rung].contract, out, ref, cb.scale(rung, X, params, ref))
         assert ok, (rung, err)
     assert torch.equal(out, k1)  # rung 11 runs the kernel's body
+
+
+@pytest.fixture(scope="module")
+def threefry(tmp_path_factory):
+    if shutil.which("g++") is None:
+        pytest.skip("needs g++ to build the kernel's source for the CPU")
+    lib = _build(cuda_prng.SRC, tmp_path_factory.mktemp("cuda_emu_threefry"))
+    vp, cint = ctypes.c_void_p, ctypes.c_int
+    lib.ms_threefry.argtypes = [vp, cint, ctypes.c_longlong, vp, cint, vp]
+    lib.ms_threefry.restype = cint
+    return lib
+
+
+def _emulated_threefry(lib, keys: torch.Tensor, n: int, pair: bool) -> torch.Tensor:
+    flat = keys.reshape(-1, 2).contiguous()
+    out = torch.full(tuple(keys.shape[:-1]) + ((n, 2) if pair else (n,)), -1, dtype=torch.int64)
+    assert lib.ms_threefry(flat.data_ptr(), flat.shape[0], n, out.data_ptr(), int(pair), None) == 0
+    return out
+
+
+@pytest.mark.parametrize("n", [1, 7, 256, 600])
+@pytest.mark.parametrize("pair", [False, True], ids=["bits", "split"])
+def test_emulated_threefry_is_bit_equal_to_its_plain_version(threefry, n, pair):
+    keys = torch.stack([prng.prng_key(s) for s in (0, 42, 2**31 - 1, 2**40 + 3)])
+    for k in (keys[1], keys, keys.reshape(2, 2, 2)):  # leading key axes
+        out = _emulated_threefry(threefry, k, n, pair)
+        ref = prng.hash_counters_plain(k, (n,), pair=pair)
+        assert torch.equal(out, ref)
+    assert (out >= 0).all() and (out <= 0xFFFFFFFF).all()
+
+
+def test_emulated_threefry_refuses_what_it_does_not_take(threefry):
+    keys = prng.prng_key(1)[None]
+    out = torch.empty(4, dtype=torch.int64)
+    assert threefry.ms_threefry(keys.data_ptr(), 1, 4, out.data_ptr(), 2, None) != 0
+    assert threefry.ms_threefry(keys.data_ptr(), 1, 2**32, out.data_ptr(), 0, None) != 0

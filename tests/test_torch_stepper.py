@@ -15,6 +15,9 @@ The port's pipelined stepper against the JAX package's:
 - through a capacity growth (drain, flush, double, re-attach) too;
 - the sentinel policies on a poisoned cell: warn counts, quarantine
   kills it at the next host boundary, rollback raises;
+- token worlds (``genome_backend="token"``) at ``megastep`` 1 and 4, det
+  mode: bit-equal to the JAX stepper over a token world, the stores'
+  tensors included;
 - ``World.step_many`` equals the serial calls, and what is not ported
   raises.
 """
@@ -145,6 +148,36 @@ def test_det_stepper_matches_jax_through_capacity_growth(monkeypatch):
     assert np.array_equal(np.asarray(jw.molecule_map), tw.molecule_map.numpy())
 
 
+@pytest.mark.parametrize("megastep,dispatches", [(1, 12), (4, 3)])
+def test_det_token_stepper_matches_jax(monkeypatch, megastep, dispatches):
+    monkeypatch.setenv("MAGICSOUP_TPU_DETERMINISTIC", "1")
+    jw = _world(ms, JCHEM, 3, genome_backend="token")
+    tw = _world(mt, TCHEM, 3, device="cpu", genome_backend="token")
+    kw = dict(KW, megastep=megastep)
+    js = ms.PipelinedStepper(jw, **kw)
+    ts = mt.PipelinedStepper(tw, **kw)
+    assert ts._evo_worker is None and ts._genomes is None  # evolution inline
+    for _ in range(dispatches):
+        js.step()
+        ts.step()
+    ts.drain()
+    ts.check_consistency()
+    js.flush()
+    ts.flush()
+    assert {k: ts.stats[k] for k in STAT_KEYS} == {k: js.stats[k] for k in STAT_KEYS}
+    assert ts.stats["genome_changes"] > 0 and ts.stats["compactions"] > 0
+    assert ts.stats["divisions"] > 0 and ts.stats["spawned"] > 0
+    _assert_same_world(jw, tw)
+    assert np.array_equal(np.asarray(jw.cell_molecules), tw.cell_molecules)
+    assert np.array_equal(np.asarray(jw.molecule_map), tw.molecule_map.numpy())
+    jstore, tstore = jw.genome_store, tw.genome_store
+    assert np.array_equal(np.asarray(jstore.tokens), tstore.tokens.numpy())
+    assert np.array_equal(np.asarray(jstore.lengths), tstore.lengths.numpy())
+    n = tw.n_cells
+    for name, t in tw.kinetics.params._asdict().items():
+        assert np.array_equal(np.asarray(getattr(jw.kinetics.params, name))[:n], t[:n].numpy())
+
+
 @pytest.mark.parametrize("policy", ["warn", "quarantine", "rollback"])
 def test_sentinel_policies_on_a_poisoned_cell(monkeypatch, policy):
     from magicsoup_tpu_torch.guard.errors import SentinelTripped
@@ -246,10 +279,6 @@ def test_what_is_not_ported_raises():
         mt.PipelinedStepper(w, dispatch_retries=1)
     with pytest.raises(ValueError, match="megastep"):
         mt.PipelinedStepper(w, megastep=0)
-    w._genome_store = object()
-    with pytest.raises(NotImplementedError, match="token genome"):
-        mt.PipelinedStepper(w)
-    w._genome_store = None
     w._mesh = object()
     with pytest.raises(ValueError, match="mesh"):
         mt.PipelinedStepper(w)
