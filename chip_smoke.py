@@ -127,8 +127,40 @@ Smoke run of the PyTorch/CUDA port on one CUDA card:
     8k and 40k cells of 1k-bp genomes, string against token for mutate,
     recombinate and the warm translate feed.
 
-Phases 10, 11 and 14 run right after the build, 15 after 5, 16 and 17
-after 7, 12, 18 and 13 after 9.
+19. persistence at full width, on the classic worlds of 5 and 15 after
+    their timed steps: ``save`` -> ``from_file(device="cuda")``, ``save``
+    -> ``from_file(device="cpu")`` -> ``save`` -> ``from_file("cuda")``,
+    and ``save_state`` -> ``load_state`` into a fresh world; after each,
+    every state array (full capacity, kinetic parameters and token
+    tables, the token store), the genomes, labels, counters and both RNG
+    states equal the saved world's bit for bit (``load_state``: the
+    state-file set, genomes, labels and counters; the RNG states are not
+    part of that format), and ``check.assert_consistent`` passes; the
+    world restored on the card runs 10 workload steps with one K1 launch
+    each, finite and >= 0 state and an empty audit; seconds and bytes of
+    ``save``, ``from_file``, ``save_state`` and ``load_state``; then, in
+    deterministic mode at phase 13's 500 cells, a restored world and an
+    uninterrupted one, string and token, stay bit-equal for 10 steps;
+20. the rest of the World API at full width, on the same worlds:
+    ``move_cells()`` and ``reposition_cells()`` of every cell,
+    ``get_cell`` of 100 cells, ``kill_cells`` of them and ``add_cells`` of
+    them back, ``check.assert_consistent`` after each;
+    ``kinetics.integrate_signals`` of the world's signals (one K1 launch)
+    against the classic step's activity under the fast contract; a
+    ``GenomeFact`` proteome spawned into a fresh world translates to its
+    spec;
+21. the differential harness on the card
+    (``magicsoup_tpu_torch.check.differential``): every det path at seeds
+    11 and 23 (the golden files' 16x16 maps, 12 and 16 cells) on
+    ``device="cuda"`` and on ``"cpu"``: the structural digests equal the
+    committed ``tests/fast/data/golden/differential_seed{11,23}.json`` at
+    all 7 boundaries, and each path's ``state_digest`` per boundary equals
+    the same path's on the CPU (the first differing array is printed if
+    not); ``cuda_k1`` in fast mode, with the real K2, equals
+    ``differential_pallas_seed11.json``.
+
+Phases 10, 11 and 14 run right after the build, 15 after 5, 19 and 20
+after 5 and after 15, 16 and 17 after 7, 12, 18, 13 and 21 after 9.
 
 With ``--parent DIR`` the run also builds an earlier version of the
 integrator kernel from DIR (its ``magicsoup_tpu_torch/ops/
@@ -140,10 +172,12 @@ this, earlier) and its host time per launch.  Nothing of the earlier
 version is held to a contract.
 
 It prints a ``{"threefry": ...}`` line, a ``{"workload": ...}`` line and
-a ``{"token_workload": ...}`` line, a ``{"stepper": ...}`` line, a
+a ``{"token_workload": ...}`` line, ``{"persistence": ...}`` and
+``{"api": ...}`` lines for each, a ``{"stepper": ...}`` line, a
 ``{"fleet": ...}`` line (each with its token runs), a
 ``{"genome_ops": ...}`` line, the flags per window, the seeded and real-state
 K2 lines, the digests, sweep, ladder, microbenchmark and det lines, a
+``{"differential": ...}`` line, a
 ``{"kernels": [...]}`` line, the card's name and power limit, and as its
 last line ``{"ok": true, "device": {...}}``.  Any failure raises, and the
 run exits non-zero without that last line.  It needs one card.
@@ -234,6 +268,17 @@ THREEFRY_ODD = (1, 7, 1_000_003)
 THREEFRY_OPS = 2 + 20 * 3 + 5 * 3 + 1
 #: the genome-ops microbenchmark's defaults
 GENOME_OPS = dict(sizes=[1000, 8000, 40000], s=1000, r=5, p=1e-4, pb=1e-5, seed=0)
+#: persistence: steps the restored world runs on, and where the files go
+#: (a git-ignored directory of the checkout, removed afterwards)
+PERSIST_STEPS = 10
+PERSIST_DIR = ROOT / "build" / "chip_smoke_persistence"
+#: the API phase: cells taken out with get_cell/kill_cells and added back
+API_CELLS = 100
+#: the differential harness: the golden files of the det paths and of
+#: the fast-mode kernel path
+GOLDEN_DIR = ROOT / "tests" / "fast" / "data" / "golden"
+DIFF_GOLDEN = ("differential_seed11.json", "differential_seed23.json")
+DIFF_CUDA_GOLDEN = "differential_pallas_seed11.json"
 #: where the real-state checks save their worst tiles (``--dump DIR``)
 DUMP_DIR = None
 STEPPER_KW = dict(
@@ -1461,6 +1506,345 @@ def _det_on_card(torch) -> dict:
     }
 
 
+def _persist_snapshot(world) -> tuple[dict, dict]:
+    """Every piece of a world's state that ``save`` must keep: arrays at
+    full capacity (the kinetic parameters and token tables, the token
+    store) and the host state, RNG states included."""
+    import numpy as np
+
+    arrays = {
+        "molecule_map": world.molecule_map.cpu().numpy(),
+        "cell_molecules": world._cell_molecules.cpu().numpy(),
+        "positions": world._np_positions.copy(),
+        "lifetimes": world._np_lifetimes.copy(),
+        "divisions": world._np_divisions.copy(),
+        "cell_map": world.cell_map.copy(),
+        "genomes": np.frombuffer("\n".join(world.cell_genomes).encode(), dtype=np.uint8),
+    }
+    for group in ("params", "tables"):
+        for name, t in getattr(world.kinetics, group)._asdict().items():
+            arrays[f"{group}.{name}"] = t.cpu().numpy()
+    if world.genome_store is not None:
+        arrays["store.tokens"] = world.genome_store.tokens.cpu().numpy()
+        arrays["store.lengths"] = world.genome_store.lengths.cpu().numpy()
+    meta = {
+        "n_cells": world.n_cells,
+        "capacity": world._capacity,
+        "labels": list(world.cell_labels),
+        "rng": world._rng.getstate(),
+        "nprng": world._nprng.bit_generator.state,
+        "deterministic": world.deterministic,
+        "integrator_choice": world._integrator_choice,
+        "kinetics_caps": (world.kinetics.max_cells, world.kinetics.max_proteins,
+                          world.kinetics.max_doms),
+    }
+    return arrays, meta
+
+
+def _timed(torch, fn):
+    """``fn()`` and its seconds, between two synchronizes."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _persistence(torch, world) -> dict:
+    """Phase 19 at full width on one classic world: the three round trips,
+    each bit-equal and audited, the restored world's 10 steps, and what a
+    checkpoint costs."""
+    import shutil
+
+    import numpy as np
+
+    import magicsoup_tpu_torch as mt
+    from magicsoup_tpu_torch.analysis import runtime
+    from magicsoup_tpu_torch.check import assert_consistent, audit_world
+    from magicsoup_tpu_torch.ops import cuda_integrate as ci
+    from magicsoup_tpu_torch.workload import sim_step
+
+    label = f"persistence ({world.genome_backend})"
+    base = PERSIST_DIR / world.genome_backend
+    shutil.rmtree(base, ignore_errors=True)
+    want = _persist_snapshot(world)
+
+    def same(other, how: str) -> None:
+        got = _persist_snapshot(other)
+        div = _first_divergence(want[0], got[0])
+        meta = sorted(k for k in want[1] if want[1][k] != got[1][k])
+        if div is not None or meta:
+            raise AssertionError(f"{label}, {how}: {div}, host state differs in {meta}")
+        assert_consistent(other)
+
+    _, save_s = _timed(torch, lambda: world.save(base / "a"))
+    save_bytes = (base / "a" / "world.pkl").stat().st_size
+    drops0 = runtime.phenotype_cache_stats()["pickle_drops"]
+    card, from_file_s = _timed(torch, lambda: mt.World.from_file(base / "a", device="cuda"))
+    drops = runtime.phenotype_cache_stats()["pickle_drops"] - drops0
+    if card.device.type != "cuda" or card.kinetics.params.Ke.device.type != "cuda":
+        raise AssertionError(f"{label}: from_file(device='cuda') gave a world on {card.device}")
+    same(card, "save -> from_file(cuda)")
+    cpu, from_file_cpu_s = _timed(torch, lambda: mt.World.from_file(base / "a", device="cpu"))
+    if cpu.kinetics.params.Ke.device.type != "cpu":
+        raise AssertionError(f"{label}: from_file(device='cpu') left tensors on the card")
+    same(cpu, "save -> from_file(cpu)")
+    cpu.save(base / "b")
+    del cpu
+    again = mt.World.from_file(base / "b", device="cuda")
+    same(again, "save -> from_file(cpu) -> save -> from_file(cuda)")
+    del again
+
+    _, save_state_s = _timed(torch, lambda: world.save_state(base / "c"))
+    state_bytes = sum(f.stat().st_size for f in (base / "c").iterdir())
+    fresh = mt.World(chemistry=world.chemistry, map_size=world.map_size, seed=world.seed,
+                     genome_backend=world.genome_backend)
+    _, load_state_s = _timed(torch, lambda: fresh.load_state(base / "c"))
+    n = world.n_cells
+    for name, a, b in (
+        ("molecule_map", want[0]["molecule_map"], fresh.molecule_map.cpu().numpy()),
+        ("cell_molecules", want[0]["cell_molecules"][:n], fresh.cell_molecules),
+        ("positions", want[0]["positions"][:n], fresh.cell_positions),
+        ("lifetimes", want[0]["lifetimes"][:n], fresh.cell_lifetimes),
+        ("divisions", want[0]["divisions"][:n], fresh.cell_divisions),
+        ("cell_map", want[0]["cell_map"], fresh.cell_map),
+        ("genomes", want[0]["genomes"],
+         np.frombuffer("\n".join(fresh.cell_genomes).encode(), dtype=np.uint8)),
+    ):
+        if a.dtype != b.dtype or a.shape != b.shape or a.tobytes() != b.tobytes():
+            raise AssertionError(f"{label}: save_state -> load_state changed {name}")
+    if fresh.cell_labels != want[1]["labels"] or fresh.n_cells != n:
+        raise AssertionError(f"{label}: save_state -> load_state changed the labels or count")
+    assert_consistent(fresh)
+    del fresh
+
+    # the world restored on the card runs on
+    atp = card.chemistry.molname_2_idx["ATP"]
+    rng = random.Random(SEED + 2)
+    ci.launches = 0
+    misses0 = card.phenotypes.misses
+    sim_step(card, rng, n_cells=N_CELLS, genome_size=GENOME_SIZE, atp_idx=atp)
+    first_step_misses = card.phenotypes.misses - misses0
+    for _ in range(PERSIST_STEPS - 1):
+        sim_step(card, rng, n_cells=N_CELLS, genome_size=GENOME_SIZE, atp_idx=atp, sync=False)
+    torch.cuda.synchronize()
+    launches = ci.launches
+    if launches != PERSIST_STEPS:
+        raise AssertionError(f"{label}: {launches} K1 launches in {PERSIST_STEPS} restored steps")
+    _check_state(card, label)
+    violations = audit_world(card)
+    if violations:
+        raise AssertionError(f"{label}: the restored world's audit after its steps: {violations}")
+    shutil.rmtree(base, ignore_errors=True)
+    return {
+        "n_cells": n,
+        "capacity": world._capacity,
+        "save_s": save_s,
+        "save_bytes": save_bytes,
+        "from_file_cuda_s": from_file_s,
+        "from_file_cpu_s": from_file_cpu_s,
+        "save_state_s": save_state_s,
+        "save_state_bytes": state_bytes,
+        "load_state_s": load_state_s,
+        "round_trips_bit_equal": 3,
+        "phenotype_pickle_drops": drops,
+        "first_step_cache_misses": first_step_misses,
+        "restored_steps": PERSIST_STEPS,
+        "restored_launches": launches,
+        "restored_n_cells": card.n_cells,
+    }
+
+
+def _det_restore(torch) -> dict:
+    """Phase 19's det part: at phase 13's 500 cells, a world restored
+    with ``save``/``from_file`` and the uninterrupted one, string and
+    token, bit-equal for 10 workload steps."""
+    import shutil
+
+    import magicsoup_tpu_torch as mt
+    from magicsoup_tpu_torch.examples.wood_ljungdahl import CHEMISTRY
+    from magicsoup_tpu_torch.workload import sim_step
+
+    atp = CHEMISTRY.molname_2_idx["ATP"]
+    saved = os.environ.get("MAGICSOUP_TPU_DETERMINISTIC")
+    os.environ["MAGICSOUP_TPU_DETERMINISTIC"] = "1"
+    out = {}
+    try:
+        for backend in ("string", "token"):
+            world = mt.World(chemistry=CHEMISTRY, map_size=DET_MAP, seed=DET_SEED,
+                             genome_backend=backend)
+            rng = random.Random(DET_SEED)
+            for _ in range(5):
+                sim_step(world, rng, n_cells=DET_CELLS, genome_size=DET_GENOME, atp_idx=atp)
+            base = PERSIST_DIR / f"det_{backend}"
+            world.save(base)
+            restored = mt.World.from_file(base, device="cuda")
+            shutil.rmtree(base, ignore_errors=True)
+            rng2 = random.Random()
+            rng2.setstate(rng.getstate())
+            for step in range(PERSIST_STEPS):
+                sim_step(world, rng, n_cells=DET_CELLS, genome_size=DET_GENOME, atp_idx=atp)
+                sim_step(restored, rng2, n_cells=DET_CELLS, genome_size=DET_GENOME, atp_idx=atp)
+                div = _first_divergence(_state_arrays(world), _state_arrays(restored))
+                if div is not None:
+                    raise AssertionError(
+                        f"det restore ({backend}): the restored world diverges at step {step}: {div}"
+                    )
+            out[backend] = {"steps": PERSIST_STEPS, "n_cells": restored.n_cells,
+                            "bit_equal_every_step": True}
+    finally:
+        if saved is None:
+            os.environ.pop("MAGICSOUP_TPU_DETERMINISTIC")
+        else:
+            os.environ["MAGICSOUP_TPU_DETERMINISTIC"] = saved
+    return out
+
+
+def _api(torch, world) -> dict:
+    """Phase 20 on one classic world at full width."""
+    import numpy as np
+
+    import magicsoup_tpu_torch as mt
+    from magicsoup_tpu_torch.check import assert_consistent
+    from magicsoup_tpu_torch.ops import backends
+    from magicsoup_tpu_torch.ops import cuda_integrate as ci
+
+    label = f"api ({world.genome_backend})"
+    out = {"n_cells": world.n_cells}
+    before = world.cell_positions.copy()
+    _, out["move_cells_s"] = _timed(torch, world.move_cells)
+    assert_consistent(world)
+    out["moved"] = int((world.cell_positions != before).any(axis=1).sum())
+    _, out["reposition_cells_s"] = _timed(torch, world.reposition_cells)
+    assert_consistent(world)
+
+    idxs = sorted(set(np.linspace(0, world.n_cells - 1, API_CELLS).astype(int).tolist()))
+    cells, out["get_cell_s"] = _timed(torch, lambda: [world.get_cell(by_idx=i) for i in idxs])
+    for c in cells:  # read before the rows move
+        c.genome, c.int_molecules
+    _, out["kill_cells_s"] = _timed(torch, lambda: world.kill_cells(idxs))
+    assert_consistent(world)
+    new, out["add_cells_s"] = _timed(torch, lambda: world.add_cells(cells))
+    if len(new) != len(cells):
+        raise AssertionError(f"{label}: add_cells placed {len(new)} of {len(cells)} cells")
+    assert_consistent(world)
+    genomes = world.cell_genomes
+    if (
+        [genomes[i] for i in new] != [c.genome for c in cells]
+        or [world.cell_labels[i] for i in new] != [c.label for c in cells]
+        or world.cell_molecules[new].tobytes()
+        != np.stack([c.int_molecules for c in cells]).tobytes()
+        or world.cell_lifetimes[new].tolist() != [c.n_steps_alive for c in cells]
+    ):
+        raise AssertionError(f"{label}: the added cells differ from the ones taken out")
+    out["cells_round_trip"] = len(new)
+
+    # Kinetics.integrate_signals against the classic step's activity
+    X0, params_q = world.integrator_inputs()
+    q = X0.shape[0]
+    X = torch.zeros((world._capacity, X0.shape[1]), dtype=torch.float32, device=X0.device)
+    X[:q] = X0
+    ref = backends.integrate("cuda", X0, params_q)
+    ci.launches = 0
+    got = world.kinetics.integrate_signals(X)
+    torch.cuda.synchronize()
+    out["integrate_signals_launches"] = ci.launches
+    if ci.launches != 1:
+        raise AssertionError(f"{label}: integrate_signals made {ci.launches} K1 launches")
+    got_np, ref_np = got[:q].cpu().numpy(), ref.cpu().numpy()
+    q99, rel_max, abs_max = _fast_errors(got_np, ref_np)
+    if not (np.isfinite(got_np).all() and (got_np >= 0).all() and q99 < 1e-4 and rel_max < 0.15):
+        raise AssertionError(f"{label}: integrate_signals breaks the fast contract: {q99}, {rel_max}")
+    out["integrate_signals"] = {"rows": q, "q99_rel": q99, "max_rel": rel_max,
+                                "max_abs_err": abs_max,
+                                "bit_equal": bool(got_np.tobytes() == ref_np.tobytes())}
+
+    # a GenomeFact proteome in a fresh world translates to its spec
+    chem = world.chemistry
+    subs, prods = chem.reactions[0]
+    mol = chem.molecules[0]
+    fresh = mt.World(chemistry=chem, map_size=MAP_SIZE, seed=SEED + 3,
+                     genome_backend=world.genome_backend)
+    fact = mt.GenomeFact(world=fresh, proteome=[
+        [mt.CatalyticDomainFact(reaction=(subs, prods), km=1.0, vmax=2.0)],
+        [mt.TransporterDomainFact(molecule=mol, is_exporter=True)],
+    ])
+    want_reaction = {tuple(sorted(subs)), tuple(sorted(prods))}
+    for attempt in range(3):  # random spacers can break a CDS, as in the JAX tests
+        (idx,) = fresh.spawn_cells([fact.generate()])
+        doms = [d for p in fresh.get_cell(by_idx=idx).proteome for d in p.domains]
+        catal = any(isinstance(d, mt.CatalyticDomain)
+                    and {tuple(sorted(d.substrates)), tuple(sorted(d.products))} == want_reaction
+                    for d in doms)
+        trans = any(isinstance(d, mt.TransporterDomain) and d.molecule is mol and d.is_exporter
+                    for d in doms)
+        if catal and trans:
+            break
+    else:
+        raise AssertionError(f"{label}: no GenomeFact genome translated to its spec in 3 tries")
+    assert_consistent(fresh)
+    out["genome_fact_tries"] = attempt + 1
+    return out
+
+
+def _both_digests(world) -> tuple:
+    """The structural and the full digest of a world, and its arrays for
+    a report of where two worlds differ."""
+    from magicsoup_tpu_torch.check import differential
+
+    return (differential.structural_digest(world), differential.state_digest(world),
+            _state_arrays(world))
+
+
+def _differential(torch) -> dict:
+    """Phase 21: the differential harness on the card against the golden
+    files and against the CPU in the same call."""
+    from magicsoup_tpu_torch.check import differential
+    from magicsoup_tpu_torch.ops import cuda_integrate as ci
+    from magicsoup_tpu_torch.ops import cuda_prng
+
+    paths = differential.PATHS + differential.FLEET_PATHS + differential.TOKEN_PATHS
+    out = {"paths": list(paths), "seconds": {"cuda": 0.0, "cpu": 0.0}, "launches": {}}
+    for name in DIFF_GOLDEN:
+        rec = json.loads((GOLDEN_DIR / name).read_text())
+        kw = dict(seed=rec["seed"], map_size=rec["map_size"], n_cells=rec["n_cells"],
+                  digest_fn=_both_digests)
+        for path in paths:
+            ci.launches = cuda_prng.launches = 0
+            t0 = time.perf_counter()
+            card = differential.run_path(path, device="cuda", **kw)
+            out["seconds"]["cuda"] += time.perf_counter() - t0
+            out["launches"][f"{path}/seed{rec['seed']}"] = {"k1_k2": ci.launches,
+                                                          "threefry": cuda_prng.launches}
+            t0 = time.perf_counter()
+            cpu = differential.run_path(path, device="cpu", **kw)
+            out["seconds"]["cpu"] += time.perf_counter() - t0
+            got = [d[0] for d in card]
+            if got != rec["structural_digests"]:
+                at = [b for b, x, y in zip(differential.BOUNDARIES, got, rec["structural_digests"])
+                      if x != y]
+                raise AssertionError(f"differential {path}, seed {rec['seed']}, on the card:"
+                                     f" structural digests differ from {name} at {at}")
+            for b, c, h in zip(differential.BOUNDARIES, card, cpu):
+                if c[1] != h[1]:
+                    raise AssertionError(
+                        f"differential {path}, seed {rec['seed']}: the card's state digest"
+                        f" differs from the CPU's at {b}: {_first_divergence(h[2], c[2])}")
+    rec = json.loads((GOLDEN_DIR / DIFF_CUDA_GOLDEN).read_text())
+    ci.launches = 0
+    got = differential.run_path("cuda_k1", device="cuda", seed=rec["seed"],
+                                map_size=rec["map_size"], n_cells=rec["n_cells"],
+                                digest_fn=differential.structural_digest)
+    out["launches"]["cuda_k1/seed11"] = {"k1_k2": ci.launches}
+    steps = sum(differential.PHASES)
+    if got != rec["structural_digests"] or ci.launches < steps:
+        raise AssertionError(f"differential cuda_k1: golden digests equal {got == rec['structural_digests']},"
+                             f" {ci.launches} K2 launches in {steps} steps")
+    out["golden_equal"] = len(DIFF_GOLDEN) * len(paths) + 1
+    out["state_digests_card_equal_cpu"] = len(DIFF_GOLDEN) * len(paths)
+    return out
+
+
 def _threefry(torch) -> dict:
     """Phase 14: the threefry kernel against its plain version on the
     card, bit for bit, one launch per draw; times and bound at the
@@ -1615,8 +1999,11 @@ def main() -> None:
     kernel["ok"] = True
     work["spawn_s"] = spawn_s
     work["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
-    del world
     print(json.dumps({"workload": work}))
+    restored = {"string": _persistence(torch, world)}
+    print(json.dumps({"persistence": {"string": restored["string"]}}))
+    print(json.dumps({"api": {"string": _api(torch, world)}}))
+    del world
 
     token_world, token_spawn_s = _workload(torch, genome_backend="token")
     torch.cuda.reset_peak_memory_stats()
@@ -1624,8 +2011,14 @@ def main() -> None:
     token_work["spawn_s"] = token_spawn_s
     token_work["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
     token_work["string_steps_per_s"] = work["steps_per_s"]
-    del token_world
     print(json.dumps({"token_workload": token_work}))
+    restored["token"] = _persistence(torch, token_world)
+    print(json.dumps({"persistence": {"token": restored["token"]}}))
+    print(json.dumps({"api": {"token": _api(torch, token_world)}}))
+    del token_world
+    print(json.dumps({"persistence": {"det_restore": _det_restore(torch)}}))
+    # K1 launches on the new paths: the restored worlds' steps
+    kernel["restored_launches"] = {k: v["restored_launches"] for k, v in restored.items()}
 
     with _Taps() as taps:
         stepper = {}
@@ -1686,6 +2079,7 @@ def main() -> None:
     print(json.dumps({"genome_ops": genome_ops}))
     det = _det_on_card(torch)
     print(json.dumps({"det_on_card": det}))
+    print(json.dumps({"differential": _differential(torch)}))
 
     from magicsoup_tpu_torch.performance import card_line
 

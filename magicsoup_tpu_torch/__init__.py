@@ -23,6 +23,12 @@ from magicsoup_tpu_torch.containers import (
     RegulatoryDomain,
     TransporterDomain,
 )
+from magicsoup_tpu_torch.factories import (
+    CatalyticDomainFact,
+    GenomeFact,
+    RegulatoryDomainFact,
+    TransporterDomainFact,
+)
 from magicsoup_tpu_torch.genetics import Genetics
 from magicsoup_tpu_torch.kinetics import Kinetics
 from magicsoup_tpu_torch.mutations import point_mutations, recombinations
@@ -35,17 +41,21 @@ __version__ = "0.1.0"
 
 __all__ = [
     "CatalyticDomain",
+    "CatalyticDomainFact",
     "Cell",
     "Chemistry",
     "DomainType",
     "FleetScheduler",
     "Genetics",
+    "GenomeFact",
     "Kinetics",
     "Molecule",
     "PipelinedStepper",
     "Protein",
     "RegulatoryDomain",
+    "RegulatoryDomainFact",
     "TransporterDomain",
+    "TransporterDomainFact",
     "World",
     "codons",
     "point_mutations",

@@ -16,7 +16,11 @@ counters have no role in eager PyTorch.
   state decodes nothing), and ``genome_fetches`` /
   ``genome_fetch_bytes`` count whole-store host snapshots
   (``GenomeStore.host_arrays``, one synchronizing device->host copy
-  each) and the bytes they moved.
+  each) and the bytes they moved;
+- in :func:`phenotype_cache_stats`, ``pickle_drops`` counts the entries
+  that phenotype caches dropped when they were pickled (a world saved
+  and restored starts with an empty cache, so its first step translates
+  every genome again: a cost, not a change of bits).
 """
 import threading
 
@@ -28,6 +32,7 @@ _genome_decode_calls = 0
 _genome_decode_rows = 0
 _genome_fetches = 0
 _genome_fetch_bytes = 0
+_pheno_pickle_drops = 0
 
 
 def note_integrator_dispatch(backend: str, n: int = 1) -> None:
@@ -54,10 +59,23 @@ def note_genome_decode(rows: int = 0) -> None:
 
 def note_genome_fetch(nbytes: int) -> None:
     """Count one host snapshot of a token genome store of ``nbytes``."""
-    global _genome_fetches, _genome_fetch_bytes
+    global _genome_fetches, _genome_fetch_bytes, _pheno_pickle_drops
     with _lock:
         _genome_fetches += 1
         _genome_fetch_bytes += nbytes
+
+
+def note_phenotype_pickle_drops(n: int) -> None:
+    """Count ``n`` phenotype-cache entries dropped by a pickle."""
+    global _pheno_pickle_drops
+    with _lock:
+        _pheno_pickle_drops += n
+
+
+def phenotype_cache_stats() -> dict[str, int]:
+    """The phenotype caches' process-wide counters, read under one lock."""
+    with _lock:
+        return {"pickle_drops": _pheno_pickle_drops}
 
 
 def snapshot() -> dict[str, int]:
@@ -83,10 +101,11 @@ def genome_stats() -> dict[str, int]:
 def reset_counters() -> None:
     """Zero every counter (tests assert absolute values after it)."""
     global _dispatches, _fused_groups, _genome_decode_calls, _genome_decode_rows
-    global _genome_fetches, _genome_fetch_bytes
+    global _genome_fetches, _genome_fetch_bytes, _pheno_pickle_drops
     with _lock:
         _dispatches = 0
         _fused_groups = 0
         _genome_decode_calls = _genome_decode_rows = 0
         _genome_fetches = _genome_fetch_bytes = 0
+        _pheno_pickle_drops = 0
         _integrator_dispatches.clear()

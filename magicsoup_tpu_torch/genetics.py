@@ -261,6 +261,24 @@ class PhenotypeCache:
         """Drop all entries (counters are kept)."""
         self._entries.clear()
 
+    def __getstate__(self) -> dict:
+        """Pickle WITHOUT the entries (cached rows would bloat a save);
+        the restoring process counts the dropped entries in
+        ``analysis.runtime.phenotype_cache_stats``, so that the first
+        step's misses after a restore are accounted for."""
+        state = self.__dict__.copy()
+        state["_entries"] = OrderedDict()
+        state["_pickle_dropped"] = len(self._entries)
+        return state
+
+    def __setstate__(self, state: dict) -> None:
+        from magicsoup_tpu_torch.analysis import runtime
+
+        dropped = state.pop("_pickle_dropped", 0)
+        self.__dict__.update(state)
+        if dropped:
+            runtime.note_phenotype_pickle_drops(int(dropped))
+
     def _translate_misses(self, genomes: list[str]) -> list[PhenotypeEntry]:
         """Translate a batch of cache misses in ONE engine call and
         build their entries."""

@@ -57,7 +57,7 @@ from magicsoup_tpu_torch.analysis import runtime as _runtime
 from magicsoup_tpu_torch.ops import detmath
 from magicsoup_tpu_torch.ops import prng as _prng
 from magicsoup_tpu_torch.ops.params import pad_idxs, pad_pow2
-from magicsoup_tpu_torch.util import fetch_host, resolve_device
+from magicsoup_tpu_torch.util import fetch_host, resolve_device, restored_device
 
 PAD = 4  # int8 fill value outside a row's live region (never a base)
 TOKEN_NTS = "TCGA"  # token code i <-> TOKEN_NTS[i]; the engine's code
@@ -497,7 +497,8 @@ class GenomeStore:
     the tensors and bumps ``version``; the decoded string view and the
     host snapshot are caches keyed by that version, so steady-state
     device evolution never decodes and a repeated export decodes once.
-    Pickling is not ported.
+    A pickle holds the tensors as host numpy and the device as its
+    string; :meth:`place` moves the store to another device.
     """
 
     def __init__(self, capacity: int, length_cap: int = _MIN_G, device=None):
@@ -526,6 +527,30 @@ class GenomeStore:
         new._decoded = None
         new._host = None
         return new
+
+    # -- placement / pickling ----------------------------------------- #
+
+    def place(self, device) -> None:
+        """Move the tensors to ``device`` (the cached host views stay
+        valid: the contents do not change)."""
+        self.device = torch.device(device)
+        self.tokens = self.tokens.to(self.device)
+        self.lengths = self.lengths.to(self.device)
+
+    def __getstate__(self) -> dict:
+        state = self.__dict__.copy()
+        state["tokens"] = fetch_host(self.tokens)
+        state["lengths"] = fetch_host(self.lengths)
+        state["device"] = str(self.device)
+        state["_decoded"] = None
+        state["_host"] = None
+        return state
+
+    def __setstate__(self, state: dict) -> None:
+        self.__dict__.update(state)
+        self.tokens = torch.from_numpy(state["tokens"])
+        self.lengths = torch.from_numpy(state["lengths"])
+        self.place(restored_device(state["device"], "GenomeStore"))
 
     # -- cached host views ------------------------------------------- #
 

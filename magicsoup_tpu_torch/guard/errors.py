@@ -1,11 +1,30 @@
 """
-Typed errors of the pipelined stepper's guard lanes.  Counterpart of the
-part of :mod:`magicsoup_tpu.guard.errors` the stepper raises.
+Typed errors of the pipelined stepper's guard lanes and of a world's
+persistence.  Counterpart of the part of :mod:`magicsoup_tpu.guard.errors`
+that the stepper and ``World.from_file`` raise.
 """
 
 
 class GuardError(RuntimeError):
     """Base class of the guard errors."""
+
+
+class CheckpointError(GuardError):
+    """A saved world could not be loaded.
+
+    Attributes:
+        check: Which check failed; ``World.from_file`` raises
+            ``"truncated"`` for a truncated or garbled pickle (the JAX
+            package's checkpoint layer adds ``"magic"``, ``"header"``,
+            ``"version"``, ``"digest"``, ``"unpickle"``, ``"config"``,
+            ``"format"``, ``"io"``, ``"degraded"`` and ``"none"``).
+        path: The offending file, when there is one.
+    """
+
+    def __init__(self, message: str, *, check: str, path=None):
+        super().__init__(message)
+        self.check = check
+        self.path = None if path is None else str(path)
 
 
 class SentinelTripped(GuardError):

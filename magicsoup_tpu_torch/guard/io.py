@@ -1,0 +1,61 @@
+"""
+Crash-safe file writes: temp file -> fsync -> ``os.replace``.
+Counterpart of :mod:`magicsoup_tpu.guard.io` (without its fault-injection
+probe).
+
+Opening the target and writing it in place truncates the previous file
+first, so a crash in between loses both the old and the new contents.
+Here a reader sees either the complete old bytes or the complete new
+ones:
+
+1. the payload goes to a uniquely named temp file in the target's
+   directory (``os.replace`` is atomic only within one filesystem);
+2. the temp file is flushed and fsynced;
+3. ``os.replace`` moves it onto the target;
+4. the directory is fsynced, so that the rename survives a power cut.
+
+Standard library only.
+"""
+import os
+from pathlib import Path
+
+
+def _fsync_dir(dirpath: Path) -> None:
+    # a directory fsync is POSIX-only: where a directory cannot be opened
+    # the rename is still atomic, only not durable across a power cut
+    try:
+        fd = os.open(dirpath, os.O_RDONLY)
+    except OSError:
+        return
+    try:
+        os.fsync(fd)
+    finally:
+        os.close(fd)
+
+
+def atomic_write_bytes(path, data: bytes) -> None:
+    """Atomically replace ``path`` with ``data``.  The temp file carries
+    the target's name plus a pid and random suffix, so concurrent writers
+    never collide; on any failure it is removed and ``path`` is left as
+    it was."""
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    tmp = path.parent / f".{path.name}.tmp.{os.getpid()}.{os.urandom(4).hex()}"
+    try:
+        with open(tmp, "wb") as fh:
+            fh.write(data)
+            fh.flush()
+            os.fsync(fh.fileno())
+        os.replace(tmp, path)
+    except BaseException:
+        try:
+            os.unlink(tmp)
+        except OSError:
+            pass
+        raise
+    _fsync_dir(path.parent)
+
+
+def atomic_write_text(path, text: str, encoding: str = "utf-8") -> None:
+    """:func:`atomic_write_bytes` for text."""
+    atomic_write_bytes(path, text.encode(encoding))

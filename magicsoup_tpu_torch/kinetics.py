@@ -22,7 +22,12 @@ import torch
 from magicsoup_tpu_torch.constants import ProteinSpecType
 from magicsoup_tpu_torch.containers import Chemistry, Molecule, Protein
 from magicsoup_tpu_torch.native import pack_dense
-from magicsoup_tpu_torch.ops.integrate import INT_PARAM_DTYPE, CellParams
+from magicsoup_tpu_torch.ops import backends as _backends
+from magicsoup_tpu_torch.ops.integrate import (
+    INT_PARAM_DTYPE,
+    CellParams,
+    default_deterministic,
+)
 from magicsoup_tpu_torch.ops.params import (
     IDX_BLOCK,
     RUNG_D_MIN,
@@ -35,7 +40,7 @@ from magicsoup_tpu_torch.ops.params import (
     rung_pow2,
     unset_rows,
 )
-from magicsoup_tpu_torch.util import resolve_device
+from magicsoup_tpu_torch.util import fetch_host, resolve_device, restored_device
 
 
 def _gather_ranges(starts: np.ndarray, counts: np.ndarray) -> np.ndarray:
@@ -417,9 +422,39 @@ class Kinetics:
         if c != self.max_cells or p != self.max_proteins:
             self._resize(c, p)
 
+    def increase_max_cells(self, by_n: int):
+        """Increase the cell dimension of all parameter tensors"""
+        self.ensure_capacity(n_cells=self.max_cells + by_n)
+
+    def increase_max_proteins(self, max_n: int):
+        """Ensure at least ``max_n`` rows in the protein dimension"""
+        self.ensure_capacity(n_proteins=max_n)
+
     # ------------------------------------------------------------------ #
     # parameter assembly                                                 #
     # ------------------------------------------------------------------ #
+
+    def set_cell_params(
+        self,
+        cell_idxs: list[int],
+        proteomes: list[list[ProteinSpecType]],
+    ):
+        """
+        Set cell parameters from nested proteome specifications (the
+        reference's API shape); ``proteomes`` come from
+        :meth:`Genetics.translate_genomes`.
+        """
+        prot_counts = np.array([len(p) for p in proteomes], dtype=np.int32)
+        prot_rows = []
+        dom_rows = []
+        for proteome in proteomes:
+            for doms, cds_start, cds_end, is_fwd in proteome:
+                prot_rows.append([cds_start, cds_end, int(is_fwd), len(doms)])
+                for (dt, i0, i1, i2, i3), start, end in doms:
+                    dom_rows.append([dt, i0, i1, i2, i3, start, end])
+        prots = np.array(prot_rows, dtype=np.int32).reshape(-1, 4)
+        doms_arr = np.array(dom_rows, dtype=np.int32).reshape(-1, 7)
+        self.set_cell_params_flat(cell_idxs, prot_counts, prots, doms_arr)
 
     def ensure_token_capacity(
         self, prot_counts: np.ndarray, prots: np.ndarray
@@ -585,6 +620,58 @@ class Kinetics:
         """Gather slot rows by a full-capacity permutation; zero the tail"""
         perm_t = torch.from_numpy(np.asarray(perm, dtype=np.int64)).to(self.device)
         self.params = permute_params(self.params, perm_t, n_keep)
+
+    def remove_cell_params(self, keep: np.ndarray):
+        """
+        Compact cell slots down to the kept ones, preserving order: the
+        kept rows move to the front, the freed rows are zeroed.  ``keep``
+        is a bool array over all slots.
+        """
+        keep = np.asarray(keep, dtype=bool)
+        perm = np.concatenate([np.nonzero(keep)[0], np.nonzero(~keep)[0]])
+        self.permute_cells(perm, int(keep.sum()))
+
+    # ------------------------------------------------------------------ #
+    # integration                                                        #
+    # ------------------------------------------------------------------ #
+
+    def integrate_signals(self, X) -> torch.Tensor:
+        """
+        Simulate protein work for one time step.  ``X`` is (c, s) over all
+        cell slots (intracellular signals first, extracellular second);
+        returns the updated signals.  The backend is resolved as a
+        world's is (``ops.backends.resolve``: the environment, then the
+        numeric mode and the device), so on a card in fast mode this is
+        one launch of the CUDA kernel.
+        """
+        name, _ = _backends.resolve(
+            deterministic=default_deterministic(), device_type=self.device.type
+        )
+        X = torch.as_tensor(X, dtype=torch.float32).to(self.device)
+        return _backends.integrate(name, X, self.params)
+
+    # ------------------------------------------------------------------ #
+    # pickling                                                           #
+    # ------------------------------------------------------------------ #
+
+    def __getstate__(self) -> dict:
+        """Tensors go to host numpy and the device to its string, so a
+        pickle holds no torch storage and loads without the device it was
+        saved from."""
+        state = self.__dict__.copy()
+        state["params"] = CellParams(*(fetch_host(t) for t in self.params))
+        state["tables"] = TokenTables(*(fetch_host(t) for t in self.tables))
+        state["_abs_temp_t"] = fetch_host(self._abs_temp_t)
+        state["device"] = str(self.device)
+        return state
+
+    def __setstate__(self, state: dict):
+        self.__dict__.update(state)
+        dev = restored_device(state["device"], "Kinetics")
+        self.device = dev
+        self.params = CellParams(*(torch.from_numpy(a).to(dev) for a in state["params"]))
+        self.tables = TokenTables(*(torch.from_numpy(a).to(dev) for a in state["tables"]))
+        self._abs_temp_t = torch.from_numpy(state["_abs_temp_t"]).to(dev)
 
     def get_proteome(self, proteome: list[ProteinSpecType]) -> list[Protein]:
         """

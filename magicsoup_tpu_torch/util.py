@@ -8,8 +8,11 @@ and consumes it exactly as the JAX package does, so seeded worlds match).
 The compile-warming scheduler of the JAX package has no role here:
 PyTorch runs eagerly and compiles nothing.
 """
+import contextlib
+import contextvars
 import random
 import string
+from collections.abc import Iterable
 from itertools import product
 
 import numpy as np
@@ -33,6 +36,16 @@ _WILDCARDS = {"N": "TCGA", "R": "AG", "Y": "CT"}
 _NT_TABLE = bytes(ord(ALL_NTS[b & 3]) for b in range(256))
 
 _COMPLEMENT = str.maketrans("ACTG", "TGAC")
+
+
+def round_down(d: float, to: int = 3) -> int:
+    """Largest multiple of ``to`` that is <= ``d``"""
+    return int(d // to) * to
+
+
+def closest_value(values: Iterable[float], key: float) -> float:
+    """The element of ``values`` nearest to ``key``"""
+    return min(values, key=lambda v: abs(v - key))
 
 
 def randstr(n: int = 12, rng: random.Random | None = None) -> str:
@@ -113,6 +126,42 @@ def resolve_device(device, owner: str) -> torch.device:
             )
         device = "cuda"
     return torch.device(device)
+
+
+# the device that objects unpickled in this context are placed on
+# (``World.from_file``); unset, each object goes back to the device it was
+# saved from
+_RESTORE_DEVICE: contextvars.ContextVar = contextvars.ContextVar(
+    "restore_device", default=None
+)
+
+
+@contextlib.contextmanager
+def restore_device(device: torch.device):
+    """Scope in which unpickled port objects place their tensors on
+    ``device`` instead of the device they were saved from."""
+    token = _RESTORE_DEVICE.set(torch.device(device))
+    try:
+        yield
+    finally:
+        _RESTORE_DEVICE.reset(token)
+
+
+def restored_device(saved: str, owner: str) -> torch.device:
+    """Where an unpickled object places its tensors: the device of the
+    enclosing :func:`restore_device`, else the one it was saved from; a
+    CUDA device that is not there is a ``RuntimeError`` naming
+    ``device='cpu'``, never a silent move to the CPU."""
+    override = _RESTORE_DEVICE.get()
+    if override is not None:
+        return override
+    device = torch.device(saved)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"this {owner} was saved on {saved!r} and no CUDA device is"
+            " available; load it with World.from_file(..., device='cpu')"
+        )
+    return device
 
 
 def fetch_host(t) -> np.ndarray:

@@ -3,11 +3,10 @@ The World: the main API object holding all simulation state and the methods
 advancing it — the classic ``World`` of :mod:`magicsoup_tpu.world`, in
 PyTorch.
 
-Same surface for what the canonical workload uses (spawn/divide/update/
-kill cells, enzymatic_activity, degrade/diffuse molecules,
-increment_cell_lifetimes, mutate/recombinate) and the same index
-semantics: cells are dense indices 0..n_cells-1, kill compacts and shifts
-indices, molecules are ordered as in :class:`Chemistry`.
+The same public surface (apart from telemetry, meshes and compile
+warming) and the same index semantics: cells are dense indices
+0..n_cells-1, kill compacts and shifts indices, molecules are ordered as
+in :class:`Chemistry`.
 
 - **capacity pools**: device tensors are allocated at a power-of-two slot
   capacity (>= 64) and grown amortized; kill is a permutation gather
@@ -24,20 +23,26 @@ indices, molecules are ordered as in :class:`Chemistry`.
   mutations, drawn from ``random.Random(seed)`` and
   ``np.random.default_rng(seed)`` in the JAX package's order, so a port
   world and a JAX world from one seed take the same decisions.
+- **persistence**: a pickle holds host numpy and the device's name, so a
+  world saved on the card loads anywhere (``from_file(device=...)``);
+  ``save_state`` writes the JAX package's file set byte for byte.
 
 The molecule tensors are replaced, never written in place, by every step
 (the JAX package's arrays are immutable, and the host snapshots below are
 cached by tensor identity).  Parameter rows are written in place.
 """
 import functools
+import io
+import pickle
 import random
 from contextlib import nullcontext
+from pathlib import Path
 
 import numpy as np
 import torch
 
 from magicsoup_tpu_torch import genomes as _genomes
-from magicsoup_tpu_torch.containers import Chemistry
+from magicsoup_tpu_torch.containers import Cell, Chemistry
 from magicsoup_tpu_torch.genetics import Genetics, PhenotypeCache
 from magicsoup_tpu_torch.kinetics import Kinetics
 from magicsoup_tpu_torch.native import engine as _engine
@@ -45,8 +50,22 @@ from magicsoup_tpu_torch.ops import backends as _backends
 from magicsoup_tpu_torch.ops import diffusion as _diff
 from magicsoup_tpu_torch.ops.detmath import flush_denormal
 from magicsoup_tpu_torch.ops.integrate import CellParams, default_deterministic
-from magicsoup_tpu_torch.ops.params import compact_rows, pad_pow2, quantize_rows
-from magicsoup_tpu_torch.util import fetch_host, moore_pairs, randstr, resolve_device
+from magicsoup_tpu_torch.guard.errors import CheckpointError
+from magicsoup_tpu_torch.guard.io import atomic_write_bytes, atomic_write_text
+from magicsoup_tpu_torch.ops.params import (
+    compact_rows,
+    pad_pow2,
+    quantize_rows,
+    write_new_rows,
+)
+from magicsoup_tpu_torch.util import (
+    fetch_host,
+    moore_pairs,
+    randstr,
+    resolve_device,
+    restore_device,
+    restored_device,
+)
 
 _MIN_CAPACITY = 64
 
@@ -376,13 +395,19 @@ class World:
         return fetch_host(self._cell_molecules[:, mol_idx])[: self.n_cells]
 
     def add_cell_molecules(self, cell_idxs: list[int], mol_idx: int, delta: float):
-        """Add ``delta`` to one molecule of the given (distinct) cells on
-        the device."""
+        """Add ``delta`` to one molecule of the given cells on the device;
+        a cell listed m times gains m x ``delta``, as in the JAX
+        package's scatter-add (the addends are equal, so the order of
+        the additions changes no bit)."""
         if len(cell_idxs) == 0:
             return
-        idxs = self._to_dev(np.asarray(cell_idxs, dtype=np.int64))
+        flat = np.asarray(cell_idxs, dtype=np.int64) * self.n_molecules + mol_idx
+        idxs = self._to_dev(flat)
+        vals = torch.full(
+            idxs.shape, np.float32(delta).item(), dtype=torch.float32, device=self.device
+        )
         new_cm = self._cell_molecules.clone()
-        new_cm[idxs, mol_idx] += np.float32(delta).item()
+        new_cm.view(-1).index_add_(0, idxs, vals)
         self._cell_molecules = new_cm
 
     @property
@@ -457,6 +482,37 @@ class World:
             return self._to_dev(arr)
         raise ValueError(
             f"Didnt recognize mol_map_init={init}. Should be one of: 'zeros', 'randn'."
+        )
+
+    # ------------------------------------------------------------------ #
+    # interpretation                                                     #
+    # ------------------------------------------------------------------ #
+
+    def get_cell(
+        self,
+        by_idx: int | None = None,
+        by_position: tuple[int, int] | None = None,
+    ) -> Cell:
+        """A :class:`Cell` view of one cell, by index or by pixel; an
+        empty pixel is a ``ValueError``."""
+        idx = -1
+        if by_idx is not None:
+            idx = by_idx
+        if by_position is not None:
+            pos = np.asarray(by_position, dtype=np.int32)
+            hits = np.nonzero((self.cell_positions == pos).all(axis=1))[0]
+            if len(hits) == 0:
+                raise ValueError(f"Cell at {by_position} not found")
+            idx = int(hits[0])
+        return Cell(
+            world=self,
+            idx=idx,
+            # token backend: Cell.genome decodes this one row on first use
+            genome=None if self._genome_store is not None else self._genomes_list[idx],
+            position=tuple(self._np_positions[idx].tolist()),
+            label=self.cell_labels[idx],
+            n_steps_alive=int(self._np_lifetimes[idx]),
+            n_divisions=int(self._np_divisions[idx]),
         )
 
     # ------------------------------------------------------------------ #
@@ -572,6 +628,57 @@ class World:
         self._molecule_map = _map_add(self._molecule_map, xs, ys, -pickup)
         new_cm = self._cell_molecules.clone()
         new_cm[new_idxs[0] : new_idxs[-1] + 1] += pickup.T
+        self._cell_molecules = new_cm
+
+        if self._genome_store is not None:
+            self._update_cell_params_rows(new_idxs, g_rows, g_lens)
+        else:
+            self._update_cell_params(genomes=genomes, idxs=new_idxs)
+        return new_idxs
+
+    def add_cells(self, cells: list[Cell]) -> list[int]:
+        """
+        Place :class:`Cell` objects on random free pixels, keeping their
+        genomes, molecules, lifetimes, divisions and labels.  Returns the
+        new cell indexes.
+        """
+        n_new = len(cells)
+        if n_new == 0:
+            return []
+        free_pos = self._find_free_random_positions(n_cells=n_new)
+        if len(free_pos) == 0:
+            return []
+        if len(free_pos) < n_new:
+            n_new = len(free_pos)
+            cells = list(cells)
+            self._rng.shuffle(cells)
+            cells = cells[:n_new]
+
+        n_old = self.n_cells
+        new_idxs = list(range(n_old, n_old + n_new))
+        self._ensure_capacity(n_old + n_new)
+        self.n_cells += n_new
+        genomes = [d.genome for d in cells]
+        if self._genome_store is not None:
+            g_rows, g_lens = self._genome_store.set_rows(new_idxs, genomes)
+        else:
+            self._genomes_list.extend(genomes)
+        self.cell_labels.extend(d.label for d in cells)
+
+        self._np_cell_map[free_pos[:, 0], free_pos[:, 1]] = True
+        self._np_positions[new_idxs] = free_pos
+        self._np_lifetimes[new_idxs] = [d.n_steps_alive for d in cells]
+        self._np_divisions[new_idxs] = [d.n_divisions for d in cells]
+        self._sync_positions()
+
+        vals = np.stack([np.asarray(d.int_molecules, dtype=np.float32) for d in cells])
+        new_cm = self._cell_molecules.clone()
+        write_new_rows(
+            new_cm[None],
+            self._to_dev(np.array([n_old], dtype=np.int64)),
+            self._to_dev(vals[None]),
+            self._to_dev(np.array([n_new], dtype=np.int64)),
+        )
         self._cell_molecules = new_cm
 
         if self._genome_store is not None:
@@ -770,6 +877,34 @@ class World:
             lab for i, lab in enumerate(self.cell_labels) if i not in kill_set
         ]
         self.n_cells -= len(kill)
+
+    def move_cells(self, cell_idxs: list[int] | None = None):
+        """
+        Move cells to a random free pixel in their Moore neighborhood
+        (cells with no free neighbor stay); a pixel vacated in one round
+        can be taken by another cell in a later one.
+        """
+        if cell_idxs is None:
+            cell_idxs = list(range(self.n_cells))
+        if len(cell_idxs) == 0:
+            return
+        cell_idxs = sorted(set(cell_idxs))
+        self._place_in_neighborhood(np.asarray(cell_idxs, dtype=np.int64), vacate=True)
+        self._sync_positions()
+
+    def reposition_cells(self, cell_idxs: list[int] | None = None):
+        """Teleport cells to random free pixels without changing them"""
+        if cell_idxs is None:
+            cell_idxs = list(range(self.n_cells))
+        if len(cell_idxs) == 0:
+            return
+        cell_idxs = sorted(set(cell_idxs))
+        old = self._np_positions[cell_idxs]
+        self._np_cell_map[old[:, 0], old[:, 1]] = False
+        new_pos = self._find_free_random_positions(n_cells=len(cell_idxs))
+        self._np_cell_map[new_pos[:, 0], new_pos[:, 1]] = True
+        self._np_positions[cell_idxs] = new_pos
+        self._sync_positions()
 
     # ------------------------------------------------------------------ #
     # physics                                                            #
@@ -1024,6 +1159,158 @@ class World:
             self._genomes_list = list(self._genome_store.decoded(self.n_cells))
             self._genome_store = None
         self.genome_backend = backend
+
+    # ------------------------------------------------------------------ #
+    # persistence                                                        #
+    # ------------------------------------------------------------------ #
+
+    #: device tensors that a pickle holds as host numpy
+    _PICKLED_TENSORS = (
+        "_cell_molecules",
+        "_molecule_map",
+        "_diff_kernels",
+        "_perm_factors",
+        "_degrad_factors",
+    )
+
+    def __getstate__(self) -> dict:
+        """Device tensors go to host numpy and the device to its string;
+        the position mirror (rebuilt from the host positions), the column
+        prefetch (a pinned buffer and a CUDA event) and the snapshot
+        caches are left out.  The phenotype cache pickles itself without
+        entries, the genome store and the kinetics their tensors as
+        numpy.  The Python and numpy RNG states are kept, so a restored
+        world draws what the original would have drawn."""
+        state = self.__dict__.copy()
+        for name in self._PICKLED_TENSORS:
+            state[name] = fetch_host(getattr(self, name))
+        state.pop("_positions_dev")
+        state.pop("_col_prefetch")
+        state["_mm_cache"] = None
+        state["_cm_cache"] = None
+        state["device"] = str(self.device)
+        return state
+
+    def __setstate__(self, state: dict):
+        self.__dict__.update(state)
+        self.device = restored_device(state["device"], "World")
+        for name in self._PICKLED_TENSORS:
+            setattr(self, name, self._to_dev(state[name]))
+        self._col_prefetch = None
+        self._sync_positions()
+
+    def save(self, rundir: Path, name: str = "world.pkl"):
+        """
+        Write the whole world (chemistry, genetics, kinetics, state, RNG
+        states) to a pickle; restore it with :meth:`from_file`.  The
+        write is atomic (:mod:`magicsoup_tpu_torch.guard.io`): a crash
+        mid-save leaves the previous file whole.  For small per-step
+        snapshots use :meth:`save_state`.
+        """
+        atomic_write_bytes(Path(rundir) / name, pickle.dumps(self))
+
+    @classmethod
+    def from_file(
+        cls,
+        rundir: Path,
+        name: str = "world.pkl",
+        device: str | torch.device | None = None,
+    ) -> "World":
+        """Restore a world saved with :meth:`save` onto ``device``:
+        ``None`` means ``"cuda"``; pass ``"cpu"`` to load onto the CPU,
+        wherever the world was saved.  A truncated or garbled file is a
+        :class:`~magicsoup_tpu_torch.guard.errors.CheckpointError` with
+        ``check="truncated"``."""
+        dev = resolve_device(device, "World.from_file")
+        path = Path(rundir) / name
+        data = path.read_bytes()
+        try:
+            with restore_device(dev):
+                return pickle.loads(data)
+        except (EOFError, pickle.UnpicklingError) as exc:
+            raise CheckpointError(
+                f"world pickle {path} is truncated or corrupt ({exc}); "
+                "recover from an older snapshot",
+                check="truncated",
+                path=path,
+            ) from exc
+
+    def save_state(self, statedir: Path):
+        """
+        Lightweight per-step checkpoint: the mutable state as ``.npy``
+        files plus a FASTA of genomes and labels, the JAX package's file
+        set byte for byte, so a state directory written by one package
+        loads into the other.
+        """
+
+        def np_save(name: str, arr: np.ndarray) -> None:
+            buf = io.BytesIO()
+            np.save(buf, arr)
+            atomic_write_bytes(statedir / name, buf.getvalue())
+
+        statedir = Path(statedir)
+        statedir.mkdir(parents=True, exist_ok=True)
+        n = self.n_cells
+        np_save("cell_molecules.npy", fetch_host(self._cell_molecules)[:n])
+        np_save("cell_map.npy", self._np_cell_map)
+        np_save("molecule_map.npy", fetch_host(self._molecule_map))
+        np_save("cell_lifetimes.npy", self._np_lifetimes[:n])
+        np_save("cell_positions.npy", self._np_positions[:n])
+        np_save("cell_divisions.npy", self._np_divisions[:n])
+        lines = [
+            f">{idx} {label}\n{genome}"
+            for idx, (genome, label) in enumerate(zip(self.cell_genomes, self.cell_labels))
+        ]
+        atomic_write_text(statedir / "cells.fasta", "\n".join(lines))
+
+    def load_state(self, statedir: Path, ignore_cell_params: bool = False):
+        """
+        Restore a state saved with :meth:`save_state`.  Unless
+        ``ignore_cell_params`` is set, all cells are killed first and all
+        genomes re-translated afterwards (a full parameter update).
+        """
+        statedir = Path(statedir)
+        if not ignore_cell_params:
+            self.kill_cells(cell_idxs=list(range(self.n_cells)))
+
+        cm = np.load(statedir / "cell_molecules.npy")
+        self._np_cell_map = np.load(statedir / "cell_map.npy")
+        self._molecule_map = self._to_dev(np.load(statedir / "molecule_map.npy"))
+        lifetimes = np.load(statedir / "cell_lifetimes.npy")
+        positions = np.load(statedir / "cell_positions.npy")
+        divisions = np.load(statedir / "cell_divisions.npy")
+
+        with open(statedir / "cells.fasta", encoding="utf-8") as fh:
+            entries = [d.strip() for d in fh.read().split(">") if len(d.strip()) > 0]
+        genomes: list[str] = []
+        labels: list[str] = []
+        for entry in entries:
+            parts = entry.split("\n")
+            names = parts[0].split()
+            genomes.append("" if len(parts) < 2 else parts[1])
+            labels.append(names[1].strip() if len(names) > 1 else "")
+        self.cell_labels = labels
+
+        n = len(genomes)
+        self.n_cells = 0
+        self._ensure_capacity(n)
+        # genomes go in AFTER the capacity grow: the token store's setter
+        # scatters into slots that must already exist
+        self.cell_genomes = genomes
+        self.n_cells = n
+        self._np_positions[:n] = positions
+        self._np_positions[n:] = 0
+        self._np_lifetimes[:n] = lifetimes
+        self._np_lifetimes[n:] = 0
+        self._np_divisions[:n] = divisions
+        self._np_divisions[n:] = 0
+        self._sync_positions()
+        full_cm = np.zeros((self._capacity, self.n_molecules), dtype=np.float32)
+        full_cm[:n] = cm
+        self._cell_molecules = self._to_dev(full_cm)
+
+        if not ignore_cell_params:
+            self.update_cells(genome_idx_pairs=[(g, i) for i, g in enumerate(genomes)])
 
     def __repr__(self) -> str:
         kwargs = {
