@@ -157,10 +157,42 @@ Smoke run of the PyTorch/CUDA port on one CUDA card:
     all 7 boundaries, and each path's ``state_digest`` per boundary equals
     the same path's on the CPU (the first differing array is printed if
     not); ``cuda_k1`` in fast mode, with the real K2, equals
-    ``differential_pallas_seed11.json``.
+    ``differential_pallas_seed11.json``;
+22. the guard and telemetry planes (``magicsoup_tpu_torch.guard``,
+    ``.telemetry``): a fresh 10k world with a recorder attached runs 5
+    classic steps (one K1 launch each), then the string stepper at K = 1
+    in four windows of 60 steps with the recorder detached, attached,
+    attached, detached (steps/s, rows and bytes written, one K2 launch
+    per step, the device-time census one entry per dispatch with its
+    total within the window's wall time), one enqueue with the recorder
+    attached under ``set_sync_debug_mode("error")``, the JSONL through
+    ``validate_rows`` and ``summarize_rows``; ``trace_window`` around 5
+    steps (5 K2 launches; the Chrome trace holds the ``ms:*`` ranges and
+    the K2 kernel);
+    two token worlds from one seed, 20 stepper steps each with the
+    recorder off and on (equal whole-store fetches per step); det mode at
+    phase 13's 500 cells, the stepper with the recorder on and off,
+    string and token, bit-equal; resumes restored in one fresh process
+    (``--resume-child``, started by the run): det at 500 cells, string
+    K = 1 and 4 and token K = 1, [n dispatches, ``save_run``, n] against
+    [n, ``save_run``, restore, n] bit-equal with the audits equal, and the
+    10k world of the windows (``save_run`` seconds and bytes,
+    ``restore_run`` seconds onto the card with the audit, 10 resumed steps
+    of one K2 launch each, an empty audit, finite and >= 0, bit-equal to
+    the uninterrupted run or else equal in structure and within the
+    per-cell contract of ROADMAP C4); then the injected faults:
+    ``dispatch:transient@2x2`` absorbed by ``dispatch_retries=3`` with the
+    fault-free det trajectory, ``fetch:delay:5`` past a 2 s
+    ``MAGICSOUP_GUARD_FETCH_TIMEOUT`` raising ``WatchdogTimeout`` with one
+    diagnostics record, ``checkpoint.write:enospc@2`` failing the second
+    save typed and counted, a flipped newest checkpoint making
+    ``load_latest`` fall back, and ``inject_nan`` under ``warn``
+    (warned, counted), ``quarantine`` (the cell killed) and ``rollback``
+    (``SentinelTripped``).
 
 Phases 10, 11 and 14 run right after the build, 15 after 5, 19 and 20
-after 5 and after 15, 16 and 17 after 7, 12, 18, 13 and 21 after 9.
+after 5 and after 15, 16 and 17 after 7, 12, 18, 13 and 21 after 9, 22
+last.
 
 With ``--parent DIR`` the run also builds an earlier version of the
 integrator kernel from DIR (its ``magicsoup_tpu_torch/ops/
@@ -177,7 +209,7 @@ a ``{"token_workload": ...}`` line, ``{"persistence": ...}`` and
 ``{"fleet": ...}`` line (each with its token runs), a
 ``{"genome_ops": ...}`` line, the flags per window, the seeded and real-state
 K2 lines, the digests, sweep, ladder, microbenchmark and det lines, a
-``{"differential": ...}`` line, a
+``{"differential": ...}`` line, a ``{"guard": ...}`` line, a
 ``{"kernels": [...]}`` line, the card's name and power limit, and as its
 last line ``{"ok": true, "device": {...}}``.  Any failure raises, and the
 run exits non-zero without that last line.  It needs one card.
@@ -1347,6 +1379,23 @@ def _genome_ops() -> list:
     return rows
 
 
+@contextlib.contextmanager
+def _det_env(on: bool = True):
+    """Scope with ``MAGICSOUP_TPU_DETERMINISTIC`` set to 1 (or unset)."""
+    saved = os.environ.get("MAGICSOUP_TPU_DETERMINISTIC")
+    if on:
+        os.environ["MAGICSOUP_TPU_DETERMINISTIC"] = "1"
+    else:
+        os.environ.pop("MAGICSOUP_TPU_DETERMINISTIC", None)
+    try:
+        yield
+    finally:
+        if saved is None:
+            os.environ.pop("MAGICSOUP_TPU_DETERMINISTIC", None)
+        else:
+            os.environ["MAGICSOUP_TPU_DETERMINISTIC"] = saved
+
+
 def _state_arrays(world) -> dict:
     """Every piece of a world's state, as scripts/bitrepro.py hashes it."""
     import numpy as np
@@ -1412,9 +1461,7 @@ def _det_on_card(torch) -> dict:
     from magicsoup_tpu_torch.examples.wood_ljungdahl import CHEMISTRY
     from magicsoup_tpu_torch.workload import sim_step
 
-    saved = os.environ.get("MAGICSOUP_TPU_DETERMINISTIC")
-    os.environ["MAGICSOUP_TPU_DETERMINISTIC"] = "1"
-    try:
+    with _det_env():
         t0 = time.perf_counter()
         atp = CHEMISTRY.molname_2_idx["ATP"]
         worlds = {d: mt.World(chemistry=CHEMISTRY, map_size=DET_MAP, seed=DET_SEED,
@@ -1482,11 +1529,6 @@ def _det_on_card(torch) -> dict:
             token_cells.append(tworlds["cuda"].n_cells)
             token_misses = tworlds["cuda"].phenotypes.misses
         token_s = time.perf_counter() - t0
-    finally:
-        if saved is None:
-            os.environ.pop("MAGICSOUP_TPU_DETERMINISTIC")
-        else:
-            os.environ["MAGICSOUP_TPU_DETERMINISTIC"] = saved
     return {
         "classic": {"steps": DET_STEPS, "cells": DET_CELLS, "map_size": DET_MAP,
                     "seed": DET_SEED, "n_cells": n_cells, "tensors": sorted(_state_arrays(worlds["cuda"])),
@@ -1666,10 +1708,8 @@ def _det_restore(torch) -> dict:
     from magicsoup_tpu_torch.workload import sim_step
 
     atp = CHEMISTRY.molname_2_idx["ATP"]
-    saved = os.environ.get("MAGICSOUP_TPU_DETERMINISTIC")
-    os.environ["MAGICSOUP_TPU_DETERMINISTIC"] = "1"
     out = {}
-    try:
+    with _det_env():
         for backend in ("string", "token"):
             world = mt.World(chemistry=CHEMISTRY, map_size=DET_MAP, seed=DET_SEED,
                              genome_backend=backend)
@@ -1692,11 +1732,6 @@ def _det_restore(torch) -> dict:
                     )
             out[backend] = {"steps": PERSIST_STEPS, "n_cells": restored.n_cells,
                             "bit_equal_every_step": True}
-    finally:
-        if saved is None:
-            os.environ.pop("MAGICSOUP_TPU_DETERMINISTIC")
-        else:
-            os.environ["MAGICSOUP_TPU_DETERMINISTIC"] = saved
     return out
 
 
@@ -1956,6 +1991,630 @@ def _k3_entry(ladder: dict) -> dict:
     }
 
 
+#: phase 22: the recorder's windows (steps each, string stepper at
+#: K 1), the token stepper's windows, the profiled window, the fast
+#: world's resumed steps, det dispatches per side of a checkpoint, the
+#: watchdog budget of the fetch fault, and where the files go (a
+#: git-ignored directory of the checkout, removed afterwards)
+GUARD_STEPS = 60
+GUARD_TOKEN_STEPS = 20
+GUARD_TRACE_STEPS = 5
+GUARD_RESUME_STEPS = 10
+GUARD_DET_DISPATCHES = {1: 6, 4: 3}
+GUARD_FETCH_TIMEOUT = 2.0
+GUARD_DIR = ROOT / "build" / "chip_smoke_guard"
+#: the det stepper of phase 22 at phase 13's 500 cells
+GUARD_DET_KW = dict(
+    mol_name="ATP", kill_below=1.0, divide_above=3.0, divide_cost=1.0,
+    target_cells=DET_CELLS, genome_size=DET_GENOME, lag=2, max_divisions=256,
+    spawn_block=64, push_block=64, p_mutation=1e-4, p_recombination=1e-5,
+)
+
+
+def _det_world(genome_backend: str = "string", telemetry=None):
+    """Phase 13's 500 cells as a stepper's world (det mode must be on)."""
+    import magicsoup_tpu_torch as mt
+    from magicsoup_tpu_torch.examples.wood_ljungdahl import CHEMISTRY
+
+    w = mt.World(chemistry=CHEMISTRY, map_size=DET_MAP, seed=DET_SEED,
+                 genome_backend=genome_backend, telemetry=telemetry)
+    rng = random.Random(DET_SEED)
+    w.spawn_cells([mt.random_genome(s=DET_GENOME, rng=rng) for _ in range(DET_CELLS)])
+    if not w.deterministic or w.integrator != "torch-det":
+        raise AssertionError("phase 22's det world does not run det mode")
+    return w
+
+
+def _run_state(world, st) -> dict:
+    """A run's whole resume-relevant state: the world's arrays (through
+    ``guard.snapshot_run``, which flushes the stepper) plus the random
+    streams, the device key and the stepper's schedule, as arrays."""
+    import numpy as np
+
+    from magicsoup_tpu_torch import guard
+
+    snap = guard.snapshot_run(world, st)
+    aux = snap["stepper"]
+    sched = repr((snap["world_rng_state"], snap["world_nprng_state"], aux["rng_state"],
+                  aux["spawn_queue"], aux["growth_hist"], aux["change_seq"],
+                  aux["dispatched_seq"]))
+    return {
+        **_state_arrays(world),
+        "key": np.asarray(aux["key"]),
+        "schedule": np.frombuffer(sched.encode(), dtype=np.uint8),
+    }
+
+
+def _fast_arrays(world) -> dict:
+    """A 10k world's structure and molecules (no parameters: those are
+    ~400 MB at capacity)."""
+    import numpy as np
+
+    n = world.n_cells
+    return {
+        "molecule_map": world.molecule_map.cpu().numpy(),
+        "cell_molecules": np.asarray(world.cell_molecules)[:n],
+        "positions": np.asarray(world.cell_positions),
+        "lifetimes": np.asarray(world.cell_lifetimes),
+        "divisions": np.asarray(world.cell_divisions),
+        "genomes": np.frombuffer("\n".join(world.cell_genomes).encode(), dtype=np.uint8),
+    }
+
+
+def _audit_codes(world):
+    """The deep audit's violation codes, as ``_resume_child`` stores them."""
+    import numpy as np
+
+    from magicsoup_tpu_torch.check import audit_world
+
+    codes = repr(sorted(v.code for v in audit_world(world)))
+    return np.frombuffer(codes.encode(), dtype=np.uint8)
+
+
+def _recorder_windows(torch, tmp: Path) -> tuple[dict, object, object]:
+    """Phase 22.1: the classic world with a recorder attached (K1), then
+    the string stepper at K 1 on it, 60 steps each way in the order
+    detached, attached, attached, detached, with the census checked in
+    every window; the enqueue sync-free with the recorder attached; the
+    JSONL validated and summarized.  Returns the numbers, the world and
+    its stepper (the resume and trace parts go on from them)."""
+    import magicsoup_tpu_torch as mt
+    from magicsoup_tpu_torch import telemetry
+    from magicsoup_tpu_torch.analysis import runtime
+    from magicsoup_tpu_torch.examples.wood_ljungdahl import CHEMISTRY
+    from magicsoup_tpu_torch.ops import cuda_integrate as ci
+    from magicsoup_tpu_torch.ops import cuda_prng
+    from magicsoup_tpu_torch.workload import sim_step
+
+    path = tmp / "run.jsonl"
+    world, spawn_s = _workload(torch)
+    world.telemetry.attach(path)
+    atp = CHEMISTRY.molname_2_idx["ATP"]
+    rng = random.Random(SEED)
+    ci.launches = 0
+    for _ in range(5):
+        sim_step(world, rng, n_cells=N_CELLS, genome_size=GENOME_SIZE, atp_idx=atp)
+    torch.cuda.synchronize()
+    classic_launches = ci.launches
+    if classic_launches != 5:
+        raise AssertionError(f"classic world with a recorder: {classic_launches} K1 launches in 5 steps")
+    st = mt.PipelinedStepper(world, megastep=1, **STEPPER_KW)
+    if st.telemetry is not world.telemetry:
+        raise AssertionError("the stepper does not share the world's recorder")
+    for _ in range(STEPPER_WARMUP):
+        st.step()
+    st.drain()
+    # one dispatch with the fetcher idle and the recorder attached: the
+    # enqueue (dispatch row included) must not synchronize
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        st.step()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    st.drain()
+    windows = []
+    for attached in (False, True, True, False):
+        if attached and not world.telemetry.attached:
+            world.telemetry.attach(path)
+        elif not attached and world.telemetry.attached:
+            world.telemetry.detach()
+        torch.cuda.synchronize()
+        rows0 = world.telemetry.rows_emitted
+        bytes0 = path.stat().st_size
+        runtime.reset_counters()
+        ci.launches = 0
+        cuda_prng.launches = 0
+        t0 = time.perf_counter()
+        for _ in range(GUARD_STEPS):
+            st.step()
+        st.drain()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        census = runtime.snapshot()
+        if ci.launches != GUARD_STEPS:
+            raise AssertionError(f"recorder window: {ci.launches} K2 launches in {GUARD_STEPS} steps")
+        if census["device_dispatches"] != GUARD_STEPS:
+            raise AssertionError(f"device-time census: {census['device_dispatches']} entries"
+                                 f" for {GUARD_STEPS} dispatches")
+        if census["device_time_us"] > dt * 1e6:
+            raise AssertionError(f"device-time census {census['device_time_us']} us exceeds"
+                                 f" the window's {dt * 1e6:.0f} us")
+        world.telemetry.flush()
+        windows.append({
+            "attached": attached,
+            "steps_per_s": GUARD_STEPS / dt,
+            "window_s": dt,
+            "launches": ci.launches,
+            "threefry_launches": cuda_prng.launches,
+            "rows": world.telemetry.rows_emitted - rows0,
+            "bytes": path.stat().st_size - bytes0,
+            "device_time_us": census["device_time_us"],
+            "device_dispatches": census["device_dispatches"],
+        })
+    for w in windows:
+        want = 2 * GUARD_STEPS if w["attached"] else 0
+        if w["rows"] < want:
+            raise AssertionError(f"recorder window wrote {w['rows']} rows, want >= {want}")
+    world.telemetry.attach(path)
+    st.flush()  # the counters row and the buffered rows go to disk
+    world.telemetry.detach()
+    rows = telemetry.read_jsonl(path)
+    problems = telemetry.validate_rows(rows)
+    if problems:
+        raise AssertionError(f"the recorder's JSONL does not validate: {problems[:5]}")
+    summary = telemetry.summarize_rows(rows)
+    _check_state(world, "phase 22 recorder windows")
+    on = [w["steps_per_s"] for w in windows if w["attached"]]
+    off = [w["steps_per_s"] for w in windows if not w["attached"]]
+    return {
+        "classic_with_recorder": {"steps": 5, "k1_launches": classic_launches},
+        "windows": windows,
+        "steps_per_s_attached": on,
+        "steps_per_s_detached": off,
+        "overhead_share": 1.0 - (sum(on) / len(on)) / (sum(off) / len(off)),
+        "sync_free_dispatch_attached": True,
+        "jsonl_rows": len(rows),
+        "jsonl_bytes": path.stat().st_size,
+        "validate_rows": problems,
+        "summary": {"steps": summary["steps"], "dispatches": summary["dispatches"],
+                    "phases": summary["phases"], "final": summary["final"]},
+        "spawn_s": spawn_s,
+    }, world, st
+
+
+def _token_fetch_windows(torch, tmp: Path) -> dict:
+    """Phase 22.1's token part: two token worlds from one seed, the
+    stepper at K 1 on each for 20 steps after its warm-up, the recorder
+    detached on the first and attached on the second: the same
+    trajectory, so the whole-store fetches per step must be equal (the
+    step row reads the store's length vector alone)."""
+    import magicsoup_tpu_torch as mt
+    from magicsoup_tpu_torch.analysis import runtime
+    from magicsoup_tpu_torch.ops import cuda_integrate as ci
+
+    out = {}
+    for attached in (False, True):
+        world, _ = _workload(torch, genome_backend="token")
+        st = mt.PipelinedStepper(world, megastep=1, **STEPPER_KW)
+        for _ in range(STEPPER_WARMUP):
+            st.step()
+        st.drain()
+        if attached:
+            world.telemetry.attach(tmp / "token.jsonl")
+        torch.cuda.synchronize()
+        g0 = runtime.genome_stats()
+        ci.launches = 0
+        t0 = time.perf_counter()
+        for _ in range(GUARD_TOKEN_STEPS):
+            st.step()
+        st.drain()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        g1 = runtime.genome_stats()
+        if ci.launches != GUARD_TOKEN_STEPS:
+            raise AssertionError(f"token window: {ci.launches} K2 launches")
+        st.flush()
+        world.telemetry.detach()
+        _check_state(world, "phase 22 token windows")
+        out["attached" if attached else "detached"] = {
+            "steps_per_s": GUARD_TOKEN_STEPS / dt,
+            "launches": ci.launches,
+            "n_cells": world.n_cells,
+            **{f"{k}_per_step": (g1[k] - g0[k]) / GUARD_TOKEN_STEPS
+               for k in ("genome_fetches", "genome_fetch_bytes", "genome_length_fetches",
+                         "genome_length_fetch_bytes", "genome_decode_calls")},
+        }
+        del world, st
+    off, on = out["detached"], out["attached"]
+    if (on["genome_fetches_per_step"], on["n_cells"]) != (off["genome_fetches_per_step"], off["n_cells"]):
+        raise AssertionError(f"token store fetches per step: {off} detached, {on} attached")
+    return out
+
+
+def _det_recorder_on_off(torch, tmp: Path) -> dict:
+    """Phase 22.2: det mode at 500 cells, the stepper at K 1 with the
+    recorder on and off, string and token: bit-equal state."""
+    import magicsoup_tpu_torch as mt
+
+    out = {}
+    with _det_env():
+        for backend in ("string", "token"):
+            states = []
+            for telemetry in (None, tmp / f"det_{backend}.jsonl"):
+                w = _det_world(backend, telemetry)
+                st = mt.PipelinedStepper(w, megastep=1, **GUARD_DET_KW)
+                for _ in range(DET_DISPATCHES):
+                    st.step()
+                states.append(_run_state(w, st))
+                w.telemetry.detach()
+            div = _first_divergence(*states)
+            if div is not None:
+                raise AssertionError(f"det {backend}: recorder on and off diverge: {div}")
+            out[backend] = {"dispatches": DET_DISPATCHES, "bit_equal": True,
+                            "n_cells": int(states[0]["positions"].shape[0])}
+    return out
+
+
+def _trace_check(torch, st, tmp: Path) -> dict:
+    """Phase 22.3: ``trace_window`` around 5 stepper steps (5 K2
+    launches); the Chrome trace must exist and hold the ``ms:*`` ranges
+    and the K2 kernel, whose records in it are counted."""
+    from magicsoup_tpu_torch import telemetry
+    from magicsoup_tpu_torch.ops import cuda_integrate as ci
+
+    ci.launches = 0
+    with telemetry.trace_window(tmp / "trace") as prof:
+        for _ in range(GUARD_TRACE_STEPS):
+            st.step()
+        st.drain()
+        torch.cuda.synchronize()
+    path = Path(prof.trace_path)
+    doc = json.loads(path.read_text())
+    names = [e.get("name", "") for e in doc.get("traceEvents", [])]
+    ranges = sorted({n for n in names if n.startswith("ms:")})
+    k2 = sum(1 for e in doc["traceEvents"]
+             if "integrate_kernel" in e.get("name", "") and e.get("cat") == "kernel")
+    if not {"ms:activity", "ms:physics", "ms:divide"} <= set(ranges):
+        raise AssertionError(f"trace_window: ms:* ranges missing, found {ranges}")
+    # the launch count is exact; the trace must hold the kernel (a full
+    # run's trace has dropped one of the window's 5 kernel records)
+    if k2 < 1 or ci.launches != GUARD_TRACE_STEPS:
+        raise AssertionError(f"trace_window: {k2} K2 kernels in the trace, {ci.launches} launches")
+    return {"bytes": path.stat().st_size, "ranges": ranges, "k2_launches": ci.launches,
+            "k2_kernels_in_trace": k2, "events": len(names)}
+
+
+def _resume_child(torch, job_path: Path) -> None:
+    """The fresh process of phase 22.4 (``--resume-child JOBS``): restores
+    every job's checkpoint onto the card and continues it; writes the
+    states and numbers beside the jobs."""
+    import numpy as np
+
+    import magicsoup_tpu_torch as mt
+    from magicsoup_tpu_torch import guard
+    from magicsoup_tpu_torch.check import audit_world
+    from magicsoup_tpu_torch.ops import cuda_integrate as ci
+
+    jobs = json.loads(job_path.read_text())
+    report = {}
+    for name, job in jobs.items():
+        with _det_env(job["det"]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            world, aux, meta = guard.restore_run(
+                guard.CheckpointManager(job["dir"]), device="cuda", audit=job["audit"]
+            )
+            torch.cuda.synchronize()
+            restore_s = time.perf_counter() - t0
+            st = mt.PipelinedStepper(world, **job["kwargs"])
+            guard.restore_stepper(st, aux)
+            per_step = []
+            for _ in range(job["dispatches"]):
+                ci.launches = 0
+                st.step()
+                per_step.append(ci.launches)
+            if job["det"]:
+                arrays = _run_state(world, st)
+            else:
+                st.flush()
+                arrays = _fast_arrays(world)
+            arrays["audit"] = np.frombuffer(
+                repr(sorted(v.code for v in audit_world(world))).encode(), dtype=np.uint8
+            )
+            np.savez(Path(job["dir"]) / "resumed.npz", **arrays)
+            report[name] = {"restore_s": restore_s, "launches_per_dispatch": per_step,
+                            "meta_step": meta["step"], "n_cells": world.n_cells,
+                            "device": str(world.device)}
+    report["_jax_loaded"] = "jax" in sys.modules or "magicsoup_tpu" in sys.modules
+    (job_path.parent / "report.json").write_text(json.dumps(report))
+
+
+def _resume_cases(torch, world, st, tmp: Path) -> dict:
+    """Phase 22.4: det mode at 500 cells (string K 1 and 4, token K 1)
+    and the 10k fast world of 22.1: [n dispatches, save_run, n] here
+    against [n, save_run] here and restore + n in one fresh process."""
+    import numpy as np
+
+    import magicsoup_tpu_torch as mt
+    from magicsoup_tpu_torch import guard
+    from magicsoup_tpu_torch.ops import cuda_integrate as ci
+
+    jobs, refs = {}, {}
+    with _det_env():
+        for backend, k in (("string", 1), ("string", 4), ("token", 1)):
+            name = f"det_{backend}_K{k}"
+            n = GUARD_DET_DISPATCHES[k]
+            kwargs = dict(GUARD_DET_KW, megastep=k)
+            wa = _det_world(backend)
+            sa = mt.PipelinedStepper(wa, **kwargs)
+            for _ in range(n):
+                sa.step()
+            guard.save_run(guard.CheckpointManager(tmp / name / "ref"), wa, sa, step=n)
+            for _ in range(n):
+                sa.step()
+            refs[name] = _run_state(wa, sa)
+            refs[name]["audit"] = _audit_codes(wa)
+            wb = _det_world(backend)
+            sb = mt.PipelinedStepper(wb, **kwargs)
+            for _ in range(n):
+                sb.step()
+            guard.save_run(guard.CheckpointManager(tmp / name), wb, sb)
+            del wa, sa, wb, sb
+            # the det worlds are not audited at the restore: the dead-row
+            # parameter residue of ROADMAP C3 may show at a flush (the
+            # JAX package's too); their audits are compared instead
+            jobs[name] = {"dir": str(tmp / name), "kwargs": kwargs, "dispatches": n,
+                          "det": True, "audit": False}
+    # the 10k fast world: its checkpoint, then the uninterrupted steps
+    mgr = guard.CheckpointManager(tmp / "fast_10k")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    path = guard.save_run(mgr, world, st)
+    save_s = time.perf_counter() - t0
+    save_bytes = path.stat().st_size
+    ci.launches = 0
+    for _ in range(GUARD_RESUME_STEPS):
+        st.step()
+    st.flush()
+    ref_launches = ci.launches
+    refs["fast_10k"] = _fast_arrays(world)
+    refs["fast_10k"]["audit"] = _audit_codes(world)
+    jobs["fast_10k"] = {"dir": str(tmp / "fast_10k"), "kwargs": dict(STEPPER_KW, megastep=1),
+                        "dispatches": GUARD_RESUME_STEPS, "det": False, "audit": True}
+    (tmp / "jobs.json").write_text(json.dumps(jobs))
+    import subprocess
+
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, str(Path(__file__).resolve()), "--resume-child", str(tmp / "jobs.json")],
+        capture_output=True, text=True, timeout=600,
+    )
+    child_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"the resume process failed:\n{proc.stdout[-3000:]}\n{proc.stderr[-6000:]}")
+    report = json.loads((tmp / "report.json").read_text())
+    if report.pop("_jax_loaded"):
+        raise AssertionError("the resume process loaded JAX")
+    out = {"child_s": child_s}
+    for name, ref in refs.items():
+        got = dict(np.load(Path(jobs[name]["dir"]) / "resumed.npz"))
+        rep = report[name]
+        audit = got["audit"].tobytes().decode()
+        if name == "fast_10k" and audit != "[]":
+            raise AssertionError(f"{name}: the resumed world fails the audit: {audit}")
+        # one K2 launch per simulated step in fast mode; det mode runs the
+        # det integrator, no kernel
+        k = 0 if jobs[name]["det"] else jobs[name]["kwargs"]["megastep"]
+        if rep["launches_per_dispatch"] != [k] * jobs[name]["dispatches"]:
+            raise AssertionError(f"{name}: K2 launches per resumed dispatch {rep['launches_per_dispatch']}")
+        div = _first_divergence(ref, got)
+        entry = {"restore_s": rep["restore_s"], "n_cells": rep["n_cells"], "audit": audit,
+                 "launches_per_dispatch": rep["launches_per_dispatch"],
+                 "bit_equal": div is None, "first_divergence": div}
+        if name.startswith("det_") and div is not None:
+            raise AssertionError(f"{name}: the resumed run diverges: {div}")
+        if name == "fast_10k":
+            cm = got["cell_molecules"]
+            if not (np.isfinite(cm).all() and (cm >= 0).all()
+                    and np.isfinite(got["molecule_map"]).all() and (got["molecule_map"] >= 0).all()):
+                raise AssertionError("fast_10k: the resumed state is not finite and >= 0")
+            if div is not None:
+                # fast mode: structure bit-equal, molecules per-cell
+                for key in ("positions", "lifetimes", "divisions", "genomes"):
+                    if ref[key].tobytes() != got[key].tobytes():
+                        raise AssertionError(f"fast_10k: resumed structure differs in {key}")
+                rel = np.abs(cm - ref["cell_molecules"]) / (np.abs(ref["cell_molecules"]) + 1e-6)
+                scale = np.maximum(np.abs(ref["cell_molecules"]).max(axis=1), 1e-6)
+                norm = np.abs(cm - ref["cell_molecules"]).max(axis=1) / scale
+                entry["cells_within_1e-4"] = float((rel.max(axis=1) < 1e-4).mean())
+                entry["cells_within_0.01"] = float((norm < 0.01).mean())
+                entry["cells_beyond_0.25"] = int((norm >= 0.25).sum())
+                if entry["cells_within_1e-4"] < 0.85 or entry["cells_within_0.01"] < 0.98:
+                    raise AssertionError(f"fast_10k: resumed molecules off the contract: {entry}")
+            entry.update(save_s=save_s, save_bytes=save_bytes, steps=GUARD_RESUME_STEPS,
+                         uninterrupted_launches=ref_launches)
+        out[name] = entry
+    return out
+
+
+def _fault_cases(torch, tmp: Path) -> dict:
+    """Phase 22.5: each injected fault on the card gives its typed
+    outcome."""
+    import errno
+    import warnings
+
+    import magicsoup_tpu_torch as mt
+    from magicsoup_tpu_torch import guard
+    from magicsoup_tpu_torch.guard import chaos
+    from magicsoup_tpu_torch.guard import watchdog
+
+    out = {}
+    with _det_env():
+        # dispatch:transient x2, absorbed by dispatch_retries=3
+        states, retries = [], []
+        for spec in (None, "dispatch:transient@2x2"):
+            w = _det_world()
+            st = mt.PipelinedStepper(w, megastep=1, dispatch_retries=3, **GUARD_DET_KW)
+            if spec:
+                chaos.arm(spec)
+            try:
+                for _ in range(4):
+                    st.step()
+            finally:
+                chaos.disarm()
+            retries.append(st.stats["dispatch_retries"])
+            states.append(_run_state(w, st))
+        div = _first_divergence(*states)
+        if retries != [0, 2] or div is not None:
+            raise AssertionError(f"dispatch fault: retries {retries}, divergence {div}")
+        out["dispatch_transient_x2"] = {"retries": retries[1], "bit_equal": True}
+
+        # fetch:delay past a 2 s budget
+        saved = os.environ.get("MAGICSOUP_GUARD_FETCH_TIMEOUT")
+        os.environ["MAGICSOUP_GUARD_FETCH_TIMEOUT"] = str(GUARD_FETCH_TIMEOUT)
+        records = []
+        dump = watchdog.dump_diagnostics
+        watchdog.dump_diagnostics = lambda tag, extra=None: records.append(dump(tag, extra)) or records[-1]
+        try:
+            w = _det_world()
+            st = mt.PipelinedStepper(w, megastep=1, **dict(GUARD_DET_KW, lag=1))
+            if st._fetch_timeout != GUARD_FETCH_TIMEOUT:
+                raise AssertionError(f"the stepper's fetch budget is {st._fetch_timeout}")
+            st.step()
+            chaos.arm("fetch:delay:5")
+            t0 = time.perf_counter()
+            try:
+                st.step()
+                raise AssertionError("fetch delay: no WatchdogTimeout")
+            except guard.WatchdogTimeout as exc:
+                waited = time.perf_counter() - t0
+                phase = exc.phase
+        finally:
+            chaos.disarm()
+            watchdog.dump_diagnostics = dump
+            if saved is None:
+                os.environ.pop("MAGICSOUP_GUARD_FETCH_TIMEOUT", None)
+            else:
+                os.environ["MAGICSOUP_GUARD_FETCH_TIMEOUT"] = saved
+        if len(records) != 1 or phase != "fetch":
+            raise AssertionError(f"fetch delay: {len(records)} diagnostics records, phase {phase}")
+        out["fetch_delay"] = {"budget_s": GUARD_FETCH_TIMEOUT, "waited_s": waited,
+                              "diagnostics": len(records),
+                              "cuda_memory_allocated": records[0].get("cuda_memory_allocated")}
+        del st, w
+
+        # checkpoint.write:enospc@2 and a flipped newest checkpoint
+        w = _det_world()
+        st = mt.PipelinedStepper(w, megastep=1, **GUARD_DET_KW)
+        mgr = guard.CheckpointManager(tmp / "faults", keep=3)
+        chaos.arm("checkpoint.write:enospc@2")
+        try:
+            st.step()
+            guard.save_run(mgr, w, st, step=1)
+            st.step()
+            try:
+                guard.save_run(mgr, w, st, step=2)
+                raise AssertionError("checkpoint.write:enospc@2: the second save did not fail")
+            except OSError as exc:
+                if exc.errno != errno.ENOSPC:
+                    raise
+        finally:
+            chaos.disarm()
+        counters = mgr.failure_counters()
+        if counters["save_failures"] != 1 or [s for s, _ in mgr.checkpoints()] != [1]:
+            raise AssertionError(f"enospc: counters {counters}, files {mgr.checkpoints()}")
+        st.step()
+        guard.save_run(mgr, w, st, step=3)
+        guard.flip_byte(mgr.latest())
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            _payload, meta, used = mgr.load_latest()
+        if meta["step"] != 1 or not any("skipping" in str(c.message) for c in caught):
+            raise AssertionError(f"flip_byte: load_latest gave step {meta['step']}")
+        out["checkpoint_enospc_at_2"] = {"failure_counters": counters}
+        out["flip_byte_newest"] = {"loaded_step": meta["step"], "fell_back": True}
+        del st, w
+
+        # inject_nan under the three policies
+        quiet = dict(GUARD_DET_KW, kill_below=-1.0, divide_above=1e30, target_cells=None,
+                     p_mutation=0.0, p_recombination=0.0, lag=1)
+        policies = {}
+        for policy in ("warn", "quarantine", "rollback"):
+            w = _det_world()
+            st = mt.PipelinedStepper(w, megastep=1, sentinel_policy=policy, **quiet)
+            st.step()
+            st.drain()
+            n_before = w.n_cells
+            guard.inject_nan(st, row=3, mol=2)
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                try:
+                    for _ in range(3):
+                        st.step()
+                    st.drain()
+                    raised = None
+                except guard.SentinelTripped as exc:
+                    raised = exc
+            warned = any("sentinel" in str(c.message) for c in caught)
+            if policy == "rollback":
+                if raised is None or raised.n_bad_cells < 1:
+                    raise AssertionError("rollback: no SentinelTripped")
+                policies[policy] = {"raised": type(raised).__name__, "flags": raised.flags}
+                continue
+            st.flush()
+            if policy == "warn" and not (warned and st.stats["sentinel_trips"] >= 1):
+                raise AssertionError(f"warn: warned {warned}, trips {st.stats['sentinel_trips']}")
+            if policy == "quarantine":
+                cm = w.cell_molecules
+                import numpy as np
+
+                if not (st.stats["quarantined"] >= 1 and w.n_cells < n_before
+                        and np.isfinite(cm).all()):
+                    raise AssertionError(f"quarantine: {st.stats['quarantined']} quarantined")
+            policies[policy] = {"sentinel_trips": st.stats["sentinel_trips"],
+                                "quarantined": st.stats["quarantined"], "warned": warned,
+                                "n_cells": [n_before, w.n_cells]}
+        out["inject_nan"] = policies
+    return out
+
+
+def _guard_phase(torch) -> tuple[dict, dict]:
+    """Phase 22: telemetry and guard on the card; returns its record and
+    the kernels' launches on its paths."""
+    import shutil
+
+    from magicsoup_tpu_torch.ops import cuda_integrate as ci
+    from magicsoup_tpu_torch.ops import cuda_prng
+
+    shutil.rmtree(GUARD_DIR, ignore_errors=True)
+    GUARD_DIR.mkdir(parents=True)
+    t0 = time.perf_counter()
+    try:
+        recorder, world, st = _recorder_windows(torch, GUARD_DIR)
+        recorder["trace_window"] = _trace_check(torch, st, GUARD_DIR)
+        ci.launches = cuda_prng.launches = 0
+        resume = _resume_cases(torch, world, st, GUARD_DIR)
+        resume_threefry = cuda_prng.launches
+        del world, st
+        recorder["token"] = _token_fetch_windows(torch, GUARD_DIR)
+        det = _det_recorder_on_off(torch, GUARD_DIR)
+        faults = _fault_cases(torch, GUARD_DIR)
+    finally:
+        shutil.rmtree(GUARD_DIR, ignore_errors=True)
+    launches = {
+        "k1_classic_with_recorder": recorder["classic_with_recorder"]["k1_launches"],
+        "k2_recorder_windows": [w["launches"] for w in recorder["windows"]],
+        "k2_trace_window": recorder["trace_window"]["k2_launches"],
+        "k2_resumed_fast_10k": resume["fast_10k"]["launches_per_dispatch"],
+        "k2_token_windows": [v["launches"] for v in recorder["token"].values()],
+        "threefry_recorder_windows": [w["threefry_launches"] for w in recorder["windows"]],
+        "threefry_resume_cases_parent": resume_threefry,
+    }
+    return {"recorder": recorder, "det_recorder_on_off": det, "resume": resume,
+            "faults": faults, "wall_s": time.perf_counter() - t0}, launches
+
+
 def main() -> None:
     global DUMP_DIR, PARENT
     import argparse
@@ -1969,9 +2628,14 @@ def main() -> None:
         "--parent", metavar="DIR", type=Path,
         help="also run the integrator kernel of an earlier tree unpacked in DIR beside this one",
     )
+    # phase 22's fresh process, started by the run itself
+    parser.add_argument("--resume-child", metavar="JOBS", type=Path, help=argparse.SUPPRESS)
     args = parser.parse_args()
     DUMP_DIR = args.dump
     torch = _environment()
+    if args.resume_child is not None:
+        _resume_child(torch, args.resume_child)
+        return
     if args.parent is not None:
         PARENT = _load_parent(args.parent.resolve())
     _build()
@@ -2080,6 +2744,10 @@ def main() -> None:
     det = _det_on_card(torch)
     print(json.dumps({"det_on_card": det}))
     print(json.dumps({"differential": _differential(torch)}))
+    guard_phase, guard_launches = _guard_phase(torch)
+    print(json.dumps({"guard": guard_phase}))
+    kernel["guard_launches"] = {"classic_with_recorder": guard_launches["k1_classic_with_recorder"]}
+    k2["guard_launches"] = {k[3:]: v for k, v in guard_launches.items() if k.startswith("k2_")}
 
     from magicsoup_tpu_torch.performance import card_line
 
@@ -2090,6 +2758,8 @@ def main() -> None:
         **{f"stepper_{key}": v["threefry_launches"] for key, v in stepper.items()},
         "fleet": fleet["threefry_launches"],
         "token_fleet": fleet_token["threefry_launches"],
+        "guard_recorder_windows": guard_launches["threefry_recorder_windows"],
+        "guard_resume_cases": guard_launches["threefry_resume_cases_parent"],
     }
     print(json.dumps({"kernels": [kernel, k2, _k3_entry(ladder),
                                   _threefry_entry(threefry, per_path)]}))

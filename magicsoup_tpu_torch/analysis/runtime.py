@@ -3,7 +3,11 @@ The dispatch census: process-wide counters of device dispatches and of the
 integrator launches they carried.  Counterpart of the dispatch counters of
 :mod:`magicsoup_tpu.analysis.runtime` (``note_dispatch``,
 ``note_integrator_dispatch``, ``snapshot``); the JAX package's compile
-counters have no role in eager PyTorch.
+counters have no role in eager PyTorch.  As in the JAX package,
+:func:`snapshot` also carries the chaos plane's counters (``chaos_fired``,
+``degraded`` and every ``guard.chaos.note_counter`` key) and the
+device-time census (``device_time_us``, ``device_dispatches``), so the
+counters rows of a telemetry stream hold every counted failure.
 
 - ``dispatches`` counts fleet group dispatches, ``fused_groups`` the rung
   groups they carried (one each, without cross-rung fusion);
@@ -16,7 +20,9 @@ counters have no role in eager PyTorch.
   state decodes nothing), and ``genome_fetches`` /
   ``genome_fetch_bytes`` count whole-store host snapshots
   (``GenomeStore.host_arrays``, one synchronizing device->host copy
-  each) and the bytes they moved;
+  each) and the bytes they moved, ``genome_length_fetches`` /
+  ``genome_length_fetch_bytes`` the fetches of a store's length vector
+  alone (``GenomeStore.host_lengths``, the token step row's);
 - in :func:`phenotype_cache_stats`, ``pickle_drops`` counts the entries
   that phenotype caches dropped when they were pickled (a world saved
   and restored starts with an empty cache, so its first step translates
@@ -32,6 +38,8 @@ _genome_decode_calls = 0
 _genome_decode_rows = 0
 _genome_fetches = 0
 _genome_fetch_bytes = 0
+_genome_length_fetches = 0
+_genome_length_fetch_bytes = 0
 _pheno_pickle_drops = 0
 
 
@@ -65,6 +73,14 @@ def note_genome_fetch(nbytes: int) -> None:
         _genome_fetch_bytes += nbytes
 
 
+def note_genome_length_fetch(nbytes: int) -> None:
+    """Count one host fetch of a token genome store's length vector."""
+    global _genome_length_fetches, _genome_length_fetch_bytes
+    with _lock:
+        _genome_length_fetches += 1
+        _genome_length_fetch_bytes += nbytes
+
+
 def note_phenotype_pickle_drops(n: int) -> None:
     """Count ``n`` phenotype-cache entries dropped by a pickle."""
     global _pheno_pickle_drops
@@ -79,11 +95,19 @@ def phenotype_cache_stats() -> dict[str, int]:
 
 
 def snapshot() -> dict[str, int]:
-    """Every counter as one flat dict, read under one lock."""
+    """Every counter as one flat dict: the dispatch census read under one
+    lock, then the chaos counters and the device-time census."""
+    # runtime -> chaos and runtime -> metrics only: neither imports this
+    # module, so the merge cannot cycle
+    from magicsoup_tpu_torch.guard import chaos as _chaos
+    from magicsoup_tpu_torch.telemetry import metrics as _metrics
+
     with _lock:
         out = {"dispatches": _dispatches, "fused_groups": _fused_groups}
         for name in sorted(_integrator_dispatches):
             out[f"integrator_dispatches_{name}"] = _integrator_dispatches[name]
+    out.update(_chaos.runtime_counters())
+    out.update(_metrics.device_time_stats())
     return out
 
 
@@ -95,17 +119,27 @@ def genome_stats() -> dict[str, int]:
             "genome_decode_rows": _genome_decode_rows,
             "genome_fetches": _genome_fetches,
             "genome_fetch_bytes": _genome_fetch_bytes,
+            "genome_length_fetches": _genome_length_fetches,
+            "genome_length_fetch_bytes": _genome_length_fetch_bytes,
         }
 
 
 def reset_counters() -> None:
-    """Zero every counter (tests assert absolute values after it)."""
+    """Zero every counter, the chaos counters and the device-time census
+    included (tests assert absolute values after it)."""
     global _dispatches, _fused_groups, _genome_decode_calls, _genome_decode_rows
     global _genome_fetches, _genome_fetch_bytes, _pheno_pickle_drops
+    global _genome_length_fetches, _genome_length_fetch_bytes
+    from magicsoup_tpu_torch.guard import chaos as _chaos
+    from magicsoup_tpu_torch.telemetry import metrics as _metrics
+
+    _chaos.reset_counters()
+    _metrics.reset_device_time()
     with _lock:
         _dispatches = 0
         _fused_groups = 0
         _genome_decode_calls = _genome_decode_rows = 0
         _genome_fetches = _genome_fetch_bytes = 0
+        _genome_length_fetches = _genome_length_fetch_bytes = 0
         _pheno_pickle_drops = 0
         _integrator_dispatches.clear()

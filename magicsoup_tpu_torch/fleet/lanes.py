@@ -55,6 +55,13 @@ class FleetLane(PipelinedStepper):
         self._checkout()
         super()._apply_push_now(genomes, rows, seq)
 
+    def _guard_row_extra(self) -> dict:
+        # tag guard telemetry rows with the lane's place in its group
+        if self._fleet_slot is not None:
+            group, slot = self._fleet_slot
+            return {"fleet_slot": slot, "fleet_size": len(group.slots)}
+        return {}
+
     def step(self) -> None:
         if self._fleet is not None:
             raise RuntimeError(

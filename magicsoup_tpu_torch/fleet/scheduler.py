@@ -21,8 +21,16 @@ Stepping
     share one fetch of the ``(B, k, record)`` output, and each replays
     its slice through the unchanged solo replay.
 
+Telemetry and guard
+    Each lane writes its rows to its own world's recorder; every member
+    of a group dispatch gets the dispatch's ``"device"`` span, its
+    ``spawn``/``push``/``param_assembly`` spans and a ``dispatch`` row
+    tagged with its ``fleet_slot`` and ``fleet_size``.  The group
+    dispatch probes the chaos ``dispatch`` site and retries through the
+    first lane's ``dispatch_retries``, only while nothing is enqueued.
+
 Cross-rung fusion (``fusion="fleet"`` / ``"auto"``), the warden,
-persistence, sharding and telemetry are not ported.
+persistence and sharding are not ported.
 """
 import threading
 import time
@@ -49,13 +57,15 @@ __all__ = ["FleetScheduler"]
 
 class _SharedFetch:
     """ONE device->host fetch of a group's batched record, shared by every
-    member lane."""
+    member lane.  A fetch past the watchdog budget dumps diagnostics
+    naming the group (``context``) and raises a typed error."""
 
-    def __init__(self, fut, *, timeout=None):
+    def __init__(self, fut, *, timeout=None, context=None):
         self._fut = fut
         self._value = None
         self._lock = threading.Lock()
         self._timeout = timeout
+        self._context = dict(context or {})
 
     def done(self) -> bool:
         return self._value is not None or self._fut.done()
@@ -68,7 +78,12 @@ class _SharedFetch:
                     self._value = np.asarray(self._fut.result(timeout=budget))
                 except (TimeoutError, _FuturesTimeout) as exc:
                     from magicsoup_tpu_torch.guard.errors import WatchdogTimeout
+                    from magicsoup_tpu_torch.guard.watchdog import dump_diagnostics
 
+                    dump_diagnostics(
+                        "fleet fetch timed out",
+                        {"phase": "fleet-fetch", "timeout_s": budget, **self._context},
+                    )
                     raise WatchdogTimeout(
                         f"fleet step-record fetch exceeded {budget:.0f}s",
                         phase="fleet-fetch",
@@ -375,23 +390,36 @@ class FleetScheduler:
         compact = tuple(slot for slot, plan in lane_plans.items() if plan.compact)
         integrator = str(first.world.integrator)
         t_dispatch0 = time.perf_counter()
-        group.fstate, group.fparams, fouts = fleet_step_program(
-            group.fstate,
-            group.fparams,
-            group.consts,
-            inputs,
-            det=bool(first.world.deterministic),
-            max_div=first.max_divisions,
-            n_rounds=first.n_rounds,
-            k=first.megastep,
-            integrator=integrator,
-            compact=compact,
+        # the chaos dispatch site fires before anything is enqueued, so a
+        # retried group dispatch sends the same inputs
+        group.fstate, group.fparams, fouts = first._dispatch_with_retry(
+            lambda: fleet_step_program(
+                group.fstate,
+                group.fparams,
+                group.consts,
+                inputs,
+                det=bool(first.world.deterministic),
+                max_div=first.max_divisions,
+                n_rounds=first.n_rounds,
+                k=first.megastep,
+                integrator=integrator,
+                compact=compact,
+            ),
+            lane_faults=False,
         )
         t_dispatched = time.perf_counter()
         _runtime.note_dispatch(dispatches=1, fused_groups=1)
         # the one group step ran every world's integrator steps: ONE count
         _runtime.note_integrator_dispatch(integrator)
-        shared = _SharedFetch(first._fetch(fouts), timeout=first._fetch_timeout)
+        # one census entry for the physical dispatch; every member's
+        # recorder gets the whole span (the group step ran for each)
+        ready = first._device_ready(t_dispatched, [lane for _, lane in members])
+        B = len(group.slots)
+        shared = _SharedFetch(
+            first._fetch(fouts, ready),
+            timeout=first._fetch_timeout,
+            context={"B": B, "k": first.megastep, "slots": [slot for slot, _ in members]},
+        )
         cap = group.fstate.cm.shape[1]
         for slot, lane in members:
             lane._commit_dispatch(
@@ -400,4 +428,5 @@ class FleetScheduler:
                 q=cap,
                 t_dispatch0=t_dispatch0,
                 t_dispatched=t_dispatched,
+                extra_row={"fleet_slot": slot, "fleet_size": B},
             )

@@ -76,8 +76,11 @@ def _download(t: torch.Tensor) -> np.ndarray:
     synchronizing copy either way."""
     if t.device.type != "cuda":
         return fetch_host(t)
+    from magicsoup_tpu_torch.telemetry.recorder import note_fetch
+
     host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
     host.copy_(t)
+    note_fetch(host.numpy().nbytes)
     return host.numpy()
 
 
@@ -512,6 +515,7 @@ class GenomeStore:
         self.version = 0
         self._decoded: tuple[int, list[str]] | None = None
         self._host: tuple[int, np.ndarray, np.ndarray] | None = None
+        self._host_lens: tuple[int, np.ndarray] | None = None
 
     def clone(self) -> "GenomeStore":
         """Tensor-SHARING copy (no device work): safe because every
@@ -526,6 +530,7 @@ class GenomeStore:
         new.version = 0
         new._decoded = None
         new._host = None
+        new._host_lens = None
         return new
 
     # -- placement / pickling ----------------------------------------- #
@@ -544,10 +549,12 @@ class GenomeStore:
         state["device"] = str(self.device)
         state["_decoded"] = None
         state["_host"] = None
+        state["_host_lens"] = None
         return state
 
     def __setstate__(self, state: dict) -> None:
         self.__dict__.update(state)
+        self._host_lens = None
         self.tokens = torch.from_numpy(state["tokens"])
         self.lengths = torch.from_numpy(state["lengths"])
         self.place(restored_device(state["device"], "GenomeStore"))
@@ -558,6 +565,7 @@ class GenomeStore:
         self.version += 1
         self._decoded = None
         self._host = None
+        self._host_lens = None
 
     def host_arrays(self) -> tuple[np.ndarray, np.ndarray]:
         """Host snapshot ``(tokens, lengths)`` (cached per version; each
@@ -567,6 +575,19 @@ class GenomeStore:
             _runtime.note_genome_fetch(tok.nbytes + lens.nbytes)
             self._host = (self.version, tok, lens)
         return self._host[1], self._host[2]
+
+    def host_lengths(self) -> np.ndarray:
+        """Host copy of the ``(cap,)`` length vector, cached per version:
+        taken from the whole-store snapshot when one is cached, else one
+        fetch of the lengths alone (counted in
+        ``analysis.runtime.genome_stats`` as a length fetch)."""
+        if self._host is not None and self._host[0] == self.version:
+            return self._host[2]
+        if self._host_lens is None or self._host_lens[0] != self.version:
+            lens = _download(self.lengths)
+            _runtime.note_genome_length_fetch(lens.nbytes)
+            self._host_lens = (self.version, lens)
+        return self._host_lens[1]
 
     def decoded(self, n: int) -> list[str]:
         """The first ``n`` rows as genome strings (cached per version;

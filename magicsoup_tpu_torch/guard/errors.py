@@ -1,7 +1,10 @@
 """
-Typed errors of the pipelined stepper's guard lanes and of a world's
-persistence.  Counterpart of the part of :mod:`magicsoup_tpu.guard.errors`
-that the stepper and ``World.from_file`` raise.
+Typed errors of the guard plane: checkpoints, the sentinel and invariant
+lanes, the watchdog, the environment knobs and dispatch faults.
+Counterpart of :mod:`magicsoup_tpu.guard.errors`.  A caller that falls
+back to an older snapshot needs to tell "the file is corrupt" from "the
+file is from a future schema" without parsing messages, so each failure
+it may handle differently has its own class with structured fields.
 """
 
 
@@ -13,11 +16,12 @@ class CheckpointError(GuardError):
     """A saved world could not be loaded.
 
     Attributes:
-        check: Which check failed; ``World.from_file`` raises
-            ``"truncated"`` for a truncated or garbled pickle (the JAX
-            package's checkpoint layer adds ``"magic"``, ``"header"``,
-            ``"version"``, ``"digest"``, ``"unpickle"``, ``"config"``,
-            ``"format"``, ``"io"``, ``"degraded"`` and ``"none"``).
+        check: Which check failed: ``"magic"``, ``"header"``,
+            ``"version"``, ``"truncated"``, ``"digest"``, ``"unpickle"``,
+            ``"migrate"``, ``"config"``, ``"format"``, ``"io"`` (the file
+            could not be read), ``"degraded"`` or ``"none"`` (no loadable
+            checkpoint); ``World.from_file`` raises ``"truncated"`` for a
+            truncated or garbled pickle.
         path: The offending file, when there is one.
     """
 
@@ -53,6 +57,21 @@ class InvariantTripped(SentinelTripped):
         super().__init__(message, flags=flags, step=step, n_bad_cells=0)
 
 
+class GuardConfigError(GuardError):
+    """A guard environment knob holds an unusable value; raised when the
+    knob is first read, naming it.
+
+    Attributes:
+        variable: The environment variable's name.
+        value: The raw string that failed to parse.
+    """
+
+    def __init__(self, message: str, *, variable: str, value: str):
+        super().__init__(message)
+        self.variable = variable
+        self.value = value
+
+
 class WatchdogTimeout(GuardError):
     """A step-record fetch exceeded its wall-clock budget.
 
@@ -65,3 +84,13 @@ class WatchdogTimeout(GuardError):
         super().__init__(message)
         self.phase = phase
         self.seconds = float(seconds)
+
+
+class TransientDispatchError(GuardError):
+    """Fault-injection stand-in for a transient backend error.  Its
+    message carries the transient marker ``UNAVAILABLE``, so
+    :func:`magicsoup_tpu_torch.guard.retry.is_transient_error` classifies
+    it as it would a real one."""
+
+    def __init__(self, message: str = "injected fault: UNAVAILABLE: backend lost"):
+        super().__init__(message)

@@ -36,8 +36,19 @@ divisions and compactions as store programs, runs evolution inline as the
 token programs (no evolution worker; the draws are threefry kernel
 launches on the card), and hands the store's tensors back at ``flush()``.
 
-Left out of this port: mesh-placed worlds, the telemetry recorder, chaos
-and fault hooks and dispatch retries.
+The guard and telemetry planes ride the host half only, as in the JAX
+package: the stepper shares the world's
+:class:`~magicsoup_tpu_torch.telemetry.TelemetryRecorder` (a ``dispatch``
+row per dispatch, a ``step`` row per replayed record, built from the
+record's host scalars and host bookkeeping, so the enqueue stays
+sync-free), retries a transient dispatch failure (``dispatch_retries``)
+only while nothing of the dispatch has been enqueued, probes the
+``dispatch`` and ``fetch`` fault points of
+:mod:`~magicsoup_tpu_torch.guard.chaos`, and bounds each record fetch by
+``MAGICSOUP_GUARD_FETCH_TIMEOUT``.  Attaching a recorder or arming a fault
+leaves the device program unchanged.
+
+Left out of this port: mesh-placed worlds.
 """
 import contextlib
 import time
@@ -48,6 +59,7 @@ import torch
 
 from magicsoup_tpu_torch.analysis import runtime as _runtime
 from magicsoup_tpu_torch.check.invariants import MASS_DRIFT_RTOL as _MASS_DRIFT_RTOL
+from magicsoup_tpu_torch.guard import chaos as _chaos
 from magicsoup_tpu_torch.guard.sentinel import NEG_EPS as _SENTINEL_NEG_EPS
 from magicsoup_tpu_torch.native import engine as _engine
 from magicsoup_tpu_torch.ops import backends as _backends
@@ -55,6 +67,9 @@ from magicsoup_tpu_torch.ops import detmath as _detmath
 from magicsoup_tpu_torch.ops import diffusion as _diff
 from magicsoup_tpu_torch.ops import prng as _prng
 from magicsoup_tpu_torch.ops.integrate import CellParams
+from magicsoup_tpu_torch.telemetry import TelemetryRecorder
+from magicsoup_tpu_torch.telemetry import metrics as _metrics
+from magicsoup_tpu_torch.telemetry.recorder import note_fetch
 from magicsoup_tpu_torch.ops.params import (
     compact_rows,
     compute_cell_params,
@@ -659,7 +674,9 @@ def dispatch_inputs(
 ) -> DispatchInputs:
     """Densify the planned spawn batches and parameter pushes of B slots
     (``slots[w]`` is ``(stepper, plan)``, or None for an empty fleet slot)
-    at one token capacity, and upload them without a synchronization."""
+    at one token capacity, and upload them without a synchronization.
+    Each slot's recorder gets its ``spawn``, ``push`` and
+    ``param_assembly`` spans."""
     B = len(slots)
     spawn_dense: list = [None] * B
     push: list = [None] * B
@@ -677,13 +694,16 @@ def dispatch_inputs(
             )
             spawn_dense[w] = to_device(dense, device)
             valid[w, : len(plan.spawn)] = True
+            st.telemetry.note("spawn", time.perf_counter() - plan.t_spawn0)
         if plan.ride is not None:
             entries, rows = plan.ride
-            dense = st.world.phenotypes.dense_rows(entries, max_proteins, max_doms)
-            push[w] = (
-                to_device(dense, device),
-                to_device(np.asarray(rows, dtype=np.int64), device),
-            )
+            with st.telemetry.span("push"):
+                dense = st.world.phenotypes.dense_rows(entries, max_proteins, max_doms)
+                push[w] = (
+                    to_device(dense, device),
+                    to_device(np.asarray(rows, dtype=np.int64), device),
+                )
+        st.telemetry.note("param_assembly", time.perf_counter() - plan.t_asm0)
     budgets = tuple(budgets)
     dev_budget = budget_cache.get(budgets)
     if dev_budget is None:
@@ -758,12 +778,14 @@ class _Fetcher(_Worker):
     """:class:`_Worker` bringing packed step records to the host in
     dispatch order.  The copy is enqueued on the dispatching thread (a
     non-blocking copy into pinned memory plus a CUDA event, so the
-    dispatch never waits); the worker thread waits on the event."""
+    dispatch never waits); the worker thread waits on the event, then
+    fires ``on_ready`` (the device-time bracket) before the record is
+    handed to any reader."""
 
     def __init__(self):
         super().__init__(name="ms-stepper-fetch")
 
-    def submit(self, arr):
+    def submit(self, arr, on_ready=None):
         host = torch.empty(arr.shape, dtype=arr.dtype, pin_memory=True)
         host.copy_(arr, non_blocking=True)
         done = torch.cuda.Event()
@@ -771,6 +793,9 @@ class _Fetcher(_Worker):
 
         def _wait():
             done.synchronize()
+            note_fetch(host.numpy().nbytes)
+            if on_ready is not None:
+                on_ready()
             return host.numpy()
 
         return super().submit(_wait)
@@ -778,18 +803,25 @@ class _Fetcher(_Worker):
 
 class _LazyFetch:
     """Inline stand-in for a fetch future on the CPU, where a record is
-    ready when its dispatch returns."""
+    ready when its dispatch returns.  ``on_ready`` fires once, at the
+    first ``result()``: on this path the device-time bracket closes at
+    replay, an upper bound."""
 
-    __slots__ = ("_arr",)
+    __slots__ = ("_arr", "_on_ready")
 
-    def __init__(self, arr):
+    def __init__(self, arr, on_ready=None):
         self._arr = arr
+        self._on_ready = on_ready
 
     def done(self) -> bool:
         return True
 
     def result(self, timeout=None):
-        return fetch_host(self._arr)
+        value = fetch_host(self._arr)
+        if self._on_ready is not None:
+            self._on_ready, cb = None, self._on_ready
+            cb()
+        return value
 
 
 class _Pending(NamedTuple):
@@ -812,6 +844,8 @@ class _DispatchPlan(NamedTuple):
 
     t_start: float  # perf_counter at step entry
     fetch0: float  # _fetch_acc at step entry
+    t_asm0: float  # start of the param_assembly span (noted at densify)
+    t_spawn0: float  # start of the spawn span (noted at densify)
     spawn: list  # [(genome, label)] taken off the spawn queue
     spawn_entries: Any  # phenotype-cache entries for ``spawn`` (or None)
     ride: Any  # (entries, rows) push refresh riding this dispatch
@@ -860,9 +894,14 @@ class PipelinedStepper:
             do: their programs already run on the device.
         sentinel_policy: Host reaction to the health and invariant lanes:
             ``"warn"``, ``"quarantine"`` or ``"rollback"``.
-        dispatch_retries: Must be 0: dispatch retries are not ported.
+        dispatch_retries: Transient dispatch failures to absorb with
+            bounded exponential backoff (``guard.retry``); a retry happens
+            only while nothing of the dispatch has been enqueued, so it
+            re-sends the same inputs.  0 (default) propagates the error.
         fetch_timeout: Seconds one record fetch may take before a
-            :class:`~magicsoup_tpu_torch.guard.errors.WatchdogTimeout`.
+            :class:`~magicsoup_tpu_torch.guard.errors.WatchdogTimeout`;
+            ``None`` reads ``MAGICSOUP_GUARD_FETCH_TIMEOUT`` (default 300,
+            a malformed value raises ``GuardConfigError`` naming it).
     """
 
     def __init__(
@@ -895,13 +934,12 @@ class PipelinedStepper:
         fetch_timeout: float | None = None,
     ):
         from magicsoup_tpu_torch.guard.sentinel import SENTINEL_POLICIES
+        from magicsoup_tpu_torch.guard.watchdog import fetch_timeout as _ft
 
         if getattr(world, "_mesh", None) is not None:
             raise ValueError("mesh-placed worlds are not ported; use one device")
-        if getattr(world, "telemetry", None) is not None:
-            raise NotImplementedError("the telemetry recorder is not ported")
-        if dispatch_retries:
-            raise ValueError("dispatch_retries > 0 is not ported; pass 0")
+        if not isinstance(dispatch_retries, int) or dispatch_retries < 0:
+            raise ValueError("dispatch_retries must be an int >= 0")
         if lag != "auto" and (not isinstance(lag, int) or lag < 0):
             raise ValueError("lag must be 'auto' or a non-negative int")
         if not isinstance(megastep, int) or megastep < 1:
@@ -931,8 +969,9 @@ class PipelinedStepper:
         self.compact_dead_slack = compact_dead_slack
         self.auto_grow = auto_grow
         self.sentinel_policy = sentinel_policy
-        self.dispatch_retries = 0
-        self._fetch_timeout = float(fetch_timeout) if fetch_timeout is not None else 300.0
+        self.dispatch_retries = dispatch_retries
+        self._fetch_timeout = float(fetch_timeout) if fetch_timeout is not None else _ft()
+        self._fault_dispatch = 0  # armed by guard.faults
         self._quarantine_pending = False
         self._sentinel_warned = False
         self._invariant_warned = False
@@ -954,8 +993,12 @@ class PipelinedStepper:
             "step_ms": 0,
             "sentinel_trips": 0,
             "quarantined": 0,
+            "dispatch_retries": 0,
             "invariant_trips": 0,
         }
+        # share the world's recorder, so one JSONL stream carries both; a
+        # detached recorder costs a dict update per phase and emits nothing
+        self.telemetry = TelemetryRecorder.coerce(getattr(world, "telemetry", None))
         dev = world.device
         self._consts = StepConsts(
             kernels=world._diff_kernels[None],
@@ -1072,18 +1115,20 @@ class PipelinedStepper:
         plan = self._prepare_dispatch()
         inputs, q = self._finalize_inputs(plan)
         t_dispatch0 = time.perf_counter()
-        self._state, params, out = megastep(
-            self._state,
-            self._params_b(),
-            self._consts,
-            inputs,
-            k=plan.k,
-            det=self.world.deterministic,
-            max_div=self.max_divisions,
-            n_rounds=self.n_rounds,
-            q=q,
-            integrator=self.world.integrator,
-            compact=(0,) if plan.compact else (),
+        self._state, params, out = self._dispatch_with_retry(
+            lambda: megastep(
+                self._state,
+                self._params_b(),
+                self._consts,
+                inputs,
+                k=plan.k,
+                det=self.world.deterministic,
+                max_div=self.max_divisions,
+                n_rounds=self.n_rounds,
+                q=q,
+                integrator=self.world.integrator,
+                compact=(0,) if plan.compact else (),
+            )
         )
         self.kin.params = CellParams(*(t[0] for t in params))
         t_dispatched = time.perf_counter()
@@ -1091,15 +1136,85 @@ class PipelinedStepper:
         _runtime.note_integrator_dispatch(self.world.integrator)
         self._commit_dispatch(
             plan,
-            self._fetch(out[0]),
+            self._fetch(out[0], self._device_ready(t_dispatched, [self])),
             q=q,
             t_dispatch0=t_dispatch0,
             t_dispatched=t_dispatched,
         )
 
-    def _fetch(self, out: torch.Tensor):
+    def _dispatch_with_retry(self, launch, *, lane_faults: bool = True):
+        """Run one dispatch's ``launch``, absorbing up to
+        ``dispatch_retries`` transient failures with bounded exponential
+        backoff.
+
+        The armed faults (``guard.faults.inject_dispatch_failures`` when
+        ``lane_faults``, and the chaos plane's ``dispatch`` site) fire
+        before ``launch`` enqueues anything.  The step body writes the
+        parameter rows in place (pushes, spawns, compaction), so once
+        ``launch`` has started a failure is never retried: a retry would
+        re-run a half-enqueued step on half-written parameters.  Only
+        transient errors (``guard.retry``'s classification; never a CUDA
+        error) are retried, so a retried dispatch sends the same inputs
+        and gives the same bits as a first-try success."""
+        from magicsoup_tpu_torch.guard.retry import is_transient_error, retry_call
+
+        started = False
+
+        def attempt():
+            nonlocal started
+            if lane_faults and self._fault_dispatch > 0:
+                from magicsoup_tpu_torch.guard.faults import consume_dispatch_fault
+
+                consume_dispatch_fault(self)
+            fault = _chaos.site("dispatch")
+            if fault is not None:
+                from magicsoup_tpu_torch.guard.errors import TransientDispatchError
+
+                raise TransientDispatchError(
+                    "injected fault: UNAVAILABLE: chaos dispatch fault "
+                    f"#{fault.index}"
+                )
+            started = True
+            return launch()
+
+        if self.dispatch_retries <= 0:
+            return attempt()
+
+        def _retryable(exc: BaseException) -> bool:
+            return not started and is_transient_error(exc)
+
+        def _note(attempt_no: int, exc: BaseException) -> None:
+            self.stats["dispatch_retries"] += 1
+            self.telemetry.note("dispatch_retry", 1.0)
+
+        return retry_call(
+            attempt, retries=self.dispatch_retries, retry_if=_retryable, on_retry=_note
+        )
+
+    @staticmethod
+    def _device_ready(t_dispatched: float, lanes):
+        """The device-time bracket of one physical dispatch: a callback,
+        fired when the dispatch's record fetch resolves (on the fetch
+        thread on a card, at the first ``result()`` on the CPU), that
+        feeds the process census (``telemetry.metrics.note_device_time``)
+        once and the ``"device"`` phase of every rider's recorder, so the
+        span lands on the next dispatch row as the fetch and replay spans
+        do.  No synchronization and no transfer of its own."""
+        recorders = tuple(lane.telemetry for lane in lanes)
+
+        def _ready():
+            dt = time.perf_counter() - t_dispatched
+            _metrics.note_device_time(dt)
+            for rec in recorders:
+                rec.note("device", dt)
+
+        return _ready
+
+    def _fetch(self, out: torch.Tensor, on_ready=None):
         """Start bringing a dispatch's records to the host."""
-        return self._fetcher.submit(out) if self._fetcher is not None else _LazyFetch(out)
+        if self._fetcher is not None:
+            return self._fetcher.submit(out, on_ready=on_ready)
+        return _LazyFetch(out, on_ready=on_ready)
 
     def _prepare_dispatch(self) -> _DispatchPlan:
         """Host half of one dispatch: drain, growth and compaction
@@ -1144,8 +1259,12 @@ class PipelinedStepper:
             or dead_est > self.compact_dead_slack
         )
 
+        # the param_assembly and spawn spans are noted when the batches are
+        # densified (dispatch_inputs)
+        t_asm0 = time.perf_counter()
         spawn = self._spawn_queue[: self.spawn_block]
         self._spawn_queue = self._spawn_queue[len(spawn) :]
+        t_spawn0 = time.perf_counter()
         spawn_entries = (
             self.world.phenotypes.lookup([g for g, _ in spawn]) if spawn else None
         )
@@ -1167,6 +1286,8 @@ class PipelinedStepper:
         return _DispatchPlan(
             t_start=t_start,
             fetch0=fetch0,
+            t_asm0=t_asm0,
+            t_spawn0=t_spawn0,
             spawn=spawn,
             spawn_entries=spawn_entries,
             ride=ride,
@@ -1207,10 +1328,13 @@ class PipelinedStepper:
         q: int,
         t_dispatch0: float,
         t_dispatched: float,
+        extra_row: dict | None = None,
     ) -> None:
-        """Post-dispatch bookkeeping: queue the pending replay, drain, and
-        update stats and trace.  The fleet calls it once per lane with that
-        lane's slice of the group's shared fetch."""
+        """Post-dispatch bookkeeping: queue the pending replay, drain,
+        update stats and trace, and emit the telemetry ``dispatch`` row.
+        The fleet calls it once per lane with that lane's slice of the
+        group's shared fetch (``extra_row`` carries the fleet slot and
+        size)."""
         k = plan.k
         self._pending.append(
             _Pending(
@@ -1249,6 +1373,26 @@ class PipelinedStepper:
                 "pend": len(self._pending),
             }
         )
+        # per-dispatch phase attribution and one JSONL row: take_dispatch()
+        # drains the window since the previous row, so the fetch, replay
+        # and device spans noted since land on this one
+        rec = self.telemetry
+        rec.note("dispatch", t_dispatched - t_dispatch0)
+        if rec.attached:
+            row = {
+                "type": "dispatch",
+                "phases": rec.take_dispatch(),
+                "k": k,
+                "q": q,
+                "rows": self._n_rows,
+                "pending": len(self._pending),
+                # eager PyTorch compiles no program: no dispatch is cold
+                "cold": False,
+                "compact": bool(plan.compact),
+            }
+            if extra_row:
+                row.update(extra_row)
+            rec.emit(row)
 
     def prewarm(self, *, q: int | None = None, compact: bool = False) -> None:
         """A no-op: eager PyTorch compiles no step program (kept for the
@@ -1334,15 +1478,46 @@ class PipelinedStepper:
         from magicsoup_tpu_torch.guard.errors import WatchdogTimeout
 
         t0 = time.perf_counter()
+        # the one fetch per dispatch, bounded by the watchdog budget, so a
+        # dead worker or a wedged transfer surfaces as stack dumps and a
+        # typed error instead of a silent hang
         try:
+            fault = _chaos.site("fetch")
+            if fault is not None:
+                # a chaos "delay" stands in for a wedged transfer: hold the
+                # fetch for the delay, capped at the budget; a delay past
+                # the budget raises the TimeoutError a real result() would
+                delay = float(fault.arg or 0.0)
+                time.sleep(min(delay, self._fetch_timeout))
+                if delay >= self._fetch_timeout:
+                    raise TimeoutError(
+                        f"chaos-injected fetch delay of {delay}s tripped "
+                        f"the {self._fetch_timeout}s watchdog"
+                    )
             arr = np.atleast_2d(np.asarray(pend.out.result(timeout=self._fetch_timeout)))
         except (TimeoutError, _FuturesTimeout) as exc:
+            from magicsoup_tpu_torch.guard.watchdog import dump_diagnostics
+
+            dump_diagnostics(
+                "stepper fetch timed out",
+                {
+                    "phase": "fetch",
+                    "timeout_s": self._fetch_timeout,
+                    "pending": len(self._pending),
+                    "replayed": self.stats["replayed"],
+                },
+            )
             raise WatchdogTimeout(
-                f"step-record fetch exceeded {self._fetch_timeout:.0f}s",
+                f"step-record fetch exceeded {self._fetch_timeout:.0f}s "
+                "(wedged transfer or dead fetch worker); diagnostics "
+                "dumped to stderr",
                 phase="fetch",
                 seconds=self._fetch_timeout,
             ) from exc
-        self._fetch_acc += time.perf_counter() - t0
+        dt_fetch = time.perf_counter() - t0
+        self._fetch_acc += dt_fetch
+        self.telemetry.note("fetch", dt_fetch)
+        t1 = time.perf_counter()
         for i in range(pend.k):
             # record 0 carries the dispatch's spawn batch; only the last
             # can be the compacting one
@@ -1353,6 +1528,12 @@ class PipelinedStepper:
                 compacted=pend.compacted and i == pend.k - 1,
                 change_seq=pend.change_seq,
             )
+        self.telemetry.note("replay", time.perf_counter() - t1)
+
+    def _guard_row_extra(self) -> dict:
+        """Extra keys of the guard telemetry rows (sentinel and invariant
+        trips); a fleet lane adds its slot and the group size."""
+        return {}
 
     def _policy_trip(self, kind: str, message: str, error) -> None:
         """The shared host policy over a tripped flag word."""
@@ -1376,6 +1557,18 @@ class PipelinedStepper:
         step = self.stats["replayed"]
         self.stats["sentinel_trips"] += 1
         names = ", ".join(k for k, v in flags.items() if v)
+        if self.telemetry.attached:
+            self.telemetry.emit(
+                {
+                    "type": "sentinel",
+                    "step": step,
+                    "flags": int(out.health),
+                    "n_bad_cells": n_bad,
+                    "policy": self.sentinel_policy,
+                    **flags,
+                    **self._guard_row_extra(),
+                }
+            )
         msg = f"health sentinel tripped at replayed step {step}: {names} ({n_bad} bad cells)"
         self._policy_trip(
             "sentinel",
@@ -1393,6 +1586,18 @@ class PipelinedStepper:
         step = self.stats["replayed"]
         self.stats["invariant_trips"] += 1
         names = ", ".join(k for k, v in flags.items() if v)
+        if self.telemetry.attached:
+            self.telemetry.emit(
+                {
+                    "type": "invariant",
+                    "step": step,
+                    "flags": int(out.invariants),
+                    "mass_drift": float(out.mass_drift),
+                    "policy": self.sentinel_policy,
+                    **flags,
+                    **self._guard_row_extra(),
+                }
+            )
         msg = (
             f"state invariant tripped at replayed step {step}: {names}"
             f" (mass drift {out.mass_drift:.3g})"
@@ -1529,6 +1734,45 @@ class PipelinedStepper:
                     (random_genome(s=self.genome_size, rng=rng), randstr(n=12, rng=rng))
                     for _ in range(missing)
                 )
+
+        # 7. the telemetry step row: the metric lanes rode the record's
+        # one fetch and are host scalars already, so this touches no
+        # device state
+        if self.telemetry.attached:
+            self.telemetry.emit(self._step_row(out, n_kills, n_placed, n_spawned))
+
+    def _step_row(
+        self, out: StepOutputs, n_kills: int, n_divided: int, n_spawned: int
+    ) -> dict:
+        """One JSONL ``step`` row (schema: ``telemetry/summary.py``)."""
+        if self._token_store is not None:
+            # the store's length vector, one 4-byte-per-row fetch cached
+            # per store version (no whole-store snapshot, no decode)
+            lens = self._token_store.host_lengths()[np.nonzero(self._alive)[0]]
+        else:
+            # one C-level pass over the row list (a Python loop over the
+            # live rows costs ~2x as much at 10k cells)
+            lens = np.fromiter(map(len, self._genomes), dtype=np.int64, count=len(self._genomes))
+            lens = lens[np.nonzero(self._alive)[0]]
+        n = len(lens)
+        return {
+            "type": "step",
+            "step": self.stats["replayed"],
+            "alive": out.n_alive,
+            "rows": out.n_rows,
+            "occupied": out.n_occupied,
+            "mm_mass": out.mm_mass,
+            "cm_mass": out.cm_mass,
+            "kills": n_kills,
+            "divisions": n_divided,
+            "spawned": n_spawned,
+            "genome_len_mean": round(int(lens.sum()) / n, 3) if n else 0.0,
+            "genome_len_max": int(lens.max()) if n else 0,
+            "total_kills": self.stats["kills"],
+            "total_divisions": self.stats["divisions"],
+            "total_spawned": self.stats["spawned"],
+            "total_mutations": self.stats["genome_changes"],
+        }
 
     def _apply_perm(self, perm: np.ndarray, n_keep: int) -> None:
         if self._token_store is not None:
@@ -1675,10 +1919,28 @@ class PipelinedStepper:
     def _apply_push_now(self, genomes: list[str] | None, rows: list[int], seq: int) -> None:
         """Apply one refresh batch on its own (oversized bursts, flush);
         ``genomes=None`` is the token spelling (content from the store)."""
-        entries = self._push_entries(genomes, rows)
-        self.kin.set_cell_params_cached(rows, entries, self.world.phenotypes)
+        if genomes is None:
+            rows = self._drop_blanked(rows)
+        if rows:
+            entries = self._push_entries(genomes, rows)
+            self.kin.set_cell_params_cached(rows, entries, self.world.phenotypes)
         self._dispatched_seq = max(self._dispatched_seq, seq)
         self.stats["pushes"] += 1
+
+    def _drop_blanked(self, rows: list[int]) -> list[int]:
+        """A token refresh without the rows that died after their change
+        was queued and that the point-mutation program has blanked since
+        (it returns PAD tokens outside its live mask and keeps the old
+        length, ROADMAP C2): such a row has no genome to translate, and
+        its refresh is moot.  The JAX stepper decodes them and fails
+        (ROADMAP C6); every other refresh is kept as it is."""
+        from magicsoup_tpu_torch.genomes import PAD
+
+        tokens, lengths = self._token_store.host_arrays()
+        return [
+            r for r in rows
+            if self._alive[r] or lengths[r] == 0 or tokens[r, 0] != PAD
+        ]
 
     def _push_entries(self, genomes: list[str] | None, rows: list[int]):
         """Phenotype entries for one refresh batch: string-keyed on the
@@ -1720,10 +1982,13 @@ class PipelinedStepper:
             top_seq = max(top_seq, seq)
         rows = sorted(merged)
         genomes = None if self._token_store is not None else [merged[r] for r in rows]
-        entries = self._push_entries(genomes, rows)
+        if genomes is None:
+            rows = self._drop_blanked(rows)
         self._dispatched_seq = top_seq
         self.stats["pushes"] += 1
-        return entries, rows
+        if not rows:
+            return None
+        return self._push_entries(genomes, rows), rows
 
     def _flush_push_queue(self) -> None:
         """Apply every queued refresh on its own (before a flush sync)."""
@@ -1744,15 +2009,16 @@ class PipelinedStepper:
         n_keep = int(self._alive.sum())
         if self._n_rows != n_keep or not self._alive[:n_keep].all():
             perm = np.argsort(~self._alive, kind="stable")
-            perm_t = to_device(perm.astype(np.int64), self.world.device)
-            st = self._state
-            self._state = st._replace(
-                cm=compact_rows(st.cm[0], perm_t, n_keep)[None],
-                pos=compact_rows(st.pos[0], perm_t, n_keep)[None],
-                alive=(torch.arange(self._cap, device=perm_t.device) < n_keep)[None],
-                n_rows=torch.full_like(st.n_rows, n_keep),
-            )
-            self.kin.params = permute_params(self.kin.params, perm_t, n_keep)
+            with self.telemetry.span("compact"):
+                perm_t = to_device(perm.astype(np.int64), self.world.device)
+                st = self._state
+                self._state = st._replace(
+                    cm=compact_rows(st.cm[0], perm_t, n_keep)[None],
+                    pos=compact_rows(st.pos[0], perm_t, n_keep)[None],
+                    alive=(torch.arange(self._cap, device=perm_t.device) < n_keep)[None],
+                    n_rows=torch.full_like(st.n_rows, n_keep),
+                )
+                self.kin.params = permute_params(self.kin.params, perm_t, n_keep)
             self._apply_perm(perm, n_keep)
 
         w = self.world
@@ -1777,6 +2043,10 @@ class PipelinedStepper:
         w._cm_cache = None
         # the world is the source of truth now; the next step re-pulls it
         self._needs_attach = True
+        # a flush is a reporting boundary: a counters row (a fresh "last"
+        # for the summary's deltas), then the buffered rows go to disk
+        self.telemetry.emit_counters()
+        self.telemetry.flush()
 
     def check_consistency(self) -> None:
         """Assert device and replayed host state agree (a test helper; it

@@ -166,8 +166,13 @@ def restored_device(saved: str, owner: str) -> torch.device:
 
 def fetch_host(t) -> np.ndarray:
     """Tensor -> host numpy: the port's one device->host boundary.  On a
-    CUDA tensor this is a synchronizing copy."""
-    return t.detach().cpu().numpy()
+    CUDA tensor this is a synchronizing copy.  Each call is counted in
+    ``telemetry.fetch_stats``."""
+    from magicsoup_tpu_torch.telemetry.recorder import note_fetch
+
+    out = t.detach().cpu().numpy()
+    note_fetch(out.nbytes)
+    return out
 
 
 # Background worker threads (the pipelined stepper's record fetcher and

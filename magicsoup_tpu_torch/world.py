@@ -3,8 +3,8 @@ The World: the main API object holding all simulation state and the methods
 advancing it — the classic ``World`` of :mod:`magicsoup_tpu.world`, in
 PyTorch.
 
-The same public surface (apart from telemetry, meshes and compile
-warming) and the same index semantics: cells are dense indices
+The same public surface (apart from meshes and compile warming) and the
+same index semantics: cells are dense indices
 0..n_cells-1, kill compacts and shifts indices, molecules are ordered as
 in :class:`Chemistry`.
 
@@ -178,6 +178,12 @@ class World:
             token tensor evolved by device programs, so strings exist only
             at the import/export boundary (spawn, ``cell_genomes``,
             ``genome_of``).
+        telemetry: JSONL sink of the telemetry recorder: ``None`` keeps a
+            detached :class:`~magicsoup_tpu_torch.telemetry.TelemetryRecorder`
+            (phase timings only, no file), a path attaches one to that
+            file, and a recorder passes through (shared across worlds).
+            A :class:`~magicsoup_tpu_torch.PipelinedStepper` over the
+            world writes its dispatch and step rows to it.
 
     State is exposed with the reference's names — ``cell_genomes``,
     ``cell_labels``, ``cell_map``, ``cell_positions``, ``cell_lifetimes``,
@@ -199,7 +205,10 @@ class World:
         integrator: str | None = None,
         phenotype_cache_size: int = 16384,
         genome_backend: str = "string",
+        telemetry=None,
     ):
+        from magicsoup_tpu_torch.telemetry import TelemetryRecorder
+
         self.device = resolve_device(device, "World")
         if seed is None:
             seed = random.SystemRandom().randrange(2**63)
@@ -276,6 +285,8 @@ class World:
         self._col_prefetch: tuple | None = None
 
         self._ensure_capacity(_MIN_CAPACITY)
+        # the recorder touches no RNG and no device state
+        self.telemetry = TelemetryRecorder.coerce(telemetry)
 
     def _to_dev(self, arr: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
@@ -1192,7 +1203,22 @@ class World:
         return state
 
     def __setstate__(self, state: dict):
+        # a legacy (schema-1) pickle holds the genome list under the name
+        # that is a property now, and no genome backend: adopt it as a
+        # string world
+        legacy_genomes = state.pop("cell_genomes", None)
         self.__dict__.update(state)
+        self.__dict__.setdefault("genome_backend", "string")
+        self.__dict__.setdefault("_genome_store", None)
+        self.__dict__.setdefault("_genomes_list", [])
+        if legacy_genomes is not None:
+            self._genomes_list = list(legacy_genomes)
+        # recorders pickle themselves detached (no file handle survives a
+        # save); a pickle from before the recorder gets a fresh one
+        if self.__dict__.get("telemetry") is None:
+            from magicsoup_tpu_torch.telemetry import TelemetryRecorder
+
+            self.telemetry = TelemetryRecorder()
         self.device = restored_device(state["device"], "World")
         for name in self._PICKLED_TENSORS:
             setattr(self, name, self._to_dev(state[name]))

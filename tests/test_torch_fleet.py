@@ -123,13 +123,22 @@ def test_b3_group_matches_jax_fleet_and_solo(det):
     for _ in range(n):
         jf.step()
         tf.step()
-    assert runtime.snapshot() == {
+    census = runtime.snapshot()
+    # the snapshot also carries the device-time census (one entry per
+    # replayed group dispatch, so settled only after the flush below) and
+    # the chaos counters, as the JAX package's does
+    device_us, device_dispatches = census.pop("device_time_us"), census.pop("device_dispatches")
+    assert device_us >= 0 and device_dispatches <= n
+    assert census == {
         "dispatches": n,
         "fused_groups": n,
         "integrator_dispatches_torch-det": n,
+        "chaos_fired": 0,
+        "degraded": 0,
     }
     jf.flush()
     tf.flush()
+    assert runtime.snapshot()["device_dispatches"] == n
     assert sum(lane.stats["divisions"] for lane in tf.lanes) > 0
     assert sum(lane.stats["spawned"] for lane in tf.lanes) > 0
     for s, jw, tw in zip(seeds, jws, tws):

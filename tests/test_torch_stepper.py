@@ -19,7 +19,7 @@ The port's pipelined stepper against the JAX package's:
   mode: bit-equal to the JAX stepper over a token world, the stores'
   tensors included;
 - ``World.step_many`` equals the serial calls, and what is not ported
-  raises.
+  (meshes, cross-rung fusion) raises.
 """
 import jax
 import jax.experimental
@@ -258,6 +258,37 @@ def test_fast_stepper_from_matched_state(monkeypatch):
     _fast_contract(tw.molecule_map.numpy(), np.asarray(jw.molecule_map))
 
 
+def test_token_flush_drops_refreshes_of_blanked_rows(monkeypatch):
+    # two dispatches at megastep 4: refreshes are queued for rows that
+    # die next and that the point-mutation program blanks (PAD tokens
+    # beside the old length, ROADMAP C2); the JAX stepper's flush
+    # decodes them and fails (ROADMAP C6), the port's drops them
+    monkeypatch.setenv("MAGICSOUP_TPU_DETERMINISTIC", "1")
+    from magicsoup_tpu_torch.check import audit_world
+
+    kw = dict(KW, megastep=4)
+    jw = _world(ms, JCHEM, 3, genome_backend="token")
+    tw = _world(mt, TCHEM, 3, genome_backend="token", device="cpu")
+    js = ms.PipelinedStepper(jw, **kw)
+    ts = mt.PipelinedStepper(tw, **kw)
+    for _ in range(2):
+        js.step()
+        ts.step()
+    with pytest.raises(IndexError):
+        js.flush()
+    dropped = []
+    drop = ts._drop_blanked
+    ts._drop_blanked = lambda rows: (dropped.append(len(rows) - len(drop(rows))), drop(rows))[1]
+    ts.flush()
+    assert sum(dropped) > 0
+    assert audit_world(tw) == []
+    for _ in range(2):
+        ts.step()
+    ts.flush()
+    ts.check_consistency()
+    assert audit_world(tw) == []
+
+
 def test_world_step_many_matches_serial_calls(monkeypatch):
     monkeypatch.setenv("MAGICSOUP_TPU_DETERMINISTIC", "1")
     fused, serial = (_world(mt, TCHEM, 13, device="cpu") for _ in range(2))
@@ -275,17 +306,17 @@ def test_world_step_many_matches_serial_calls(monkeypatch):
 
 def test_what_is_not_ported_raises():
     w = _world(mt, TCHEM, 1, device="cpu")
+    # dispatch retries and the recorder are ported now: a bad retry count
+    # is refused, a world's recorder is shared
     with pytest.raises(ValueError, match="dispatch_retries"):
-        mt.PipelinedStepper(w, dispatch_retries=1)
+        mt.PipelinedStepper(w, dispatch_retries=-1)
+    assert mt.PipelinedStepper(w, dispatch_retries=1).telemetry is w.telemetry
     with pytest.raises(ValueError, match="megastep"):
         mt.PipelinedStepper(w, megastep=0)
     w._mesh = object()
     with pytest.raises(ValueError, match="mesh"):
         mt.PipelinedStepper(w)
     del w._mesh
-    w.telemetry = object()
-    with pytest.raises(NotImplementedError, match="telemetry"):
-        mt.PipelinedStepper(w)
     for fusion in ("fleet", "auto"):
         with pytest.raises(ValueError, match="cross-rung fusion is not ported"):
             mt.FleetScheduler(fusion=fusion)
