@@ -157,7 +157,12 @@ Smoke run of the PyTorch/CUDA port on one CUDA card:
     all 7 boundaries, and each path's ``state_digest`` per boundary equals
     the same path's on the CPU (the first differing array is printed if
     not); ``cuda_k1`` in fast mode, with the real K2, equals
-    ``differential_pallas_seed11.json``;
+    ``differential_pallas_seed11.json``; the fused paths (the schedule
+    world in a mixed-rung fleet, companions on a 32x32 map, ``block=2``):
+    ``fused2`` (K = 1, ``fusion="fleet"``) equals
+    ``differential_fused2_seed11.json``, and ``fused2`` and
+    ``fused_fleet`` (K = 4, ``fusion="auto"``) equal the ``k1`` and
+    ``k4`` paths' full digests at every boundary on the card;
 22. the guard and telemetry planes (``magicsoup_tpu_torch.guard``,
     ``.telemetry``): a fresh 10k world with a recorder attached runs 5
     classic steps (one K1 launch each), then the string stepper at K = 1
@@ -188,11 +193,46 @@ Smoke run of the PyTorch/CUDA port on one CUDA card:
     save typed and counted, a flipped newest checkpoint making
     ``load_latest`` fall back, and ``inject_nan`` under ``warn``
     (warned, counted), ``quarantine`` (the cell killed) and ``rollback``
-    (``SentinelTripped``).
+    (``SentinelTripped``);
+23. the rest of the fleet at the headline configuration (Wood-Ljungdahl,
+    s 28, 500-bp genomes, fast mode, the ``cuda`` integrator, p 32):
+    (1) the grouped launch (``ms_integrate_signals_grouped``) over seeded
+    groups of 2 x 16384 and 2 x 32768 rows and one group at a
+    ``SWEEP_SHAPES`` entry off the resident route: each world's sha256
+    equal to its group's own launch's, each group under the fast
+    contract, one launch per route; its median time against the groups'
+    own launches in turns, the plain version's, host microseconds per
+    call, CTAs per SM and the bound summed over the groups;
+    (2) a mixed-rung fleet: 2 worlds of 10k cells on 128² (seeds 42, 43,
+    capacity 16384) and 2 of 20k on 256² (seeds 44, 45, capacity 32768),
+    phase 7's selection at K = 1 without capacity growth, ``block=2``,
+    twice from the same seeds, ``fusion="rung"`` and ``fusion="fleet"``,
+    in interleaved windows of 30 fleet steps (rung, fused, fused, rung):
+    world-steps/s per window; per fleet step dispatches, record fetches,
+    K2 launches, grouped launches (exactly one per fused step); a
+    profiled 5-step window of each; peak memory; flags decoded as in 6
+    and 7; after a flush every fused world bit-equal to its per-rung
+    twin; (3) the grouped launch on a copy of the fused fleet's
+    integrator inputs at its first timed step, each group equal to its
+    own launch and under the real-state contract of 9, its times and
+    bound (the kernels line's entry); (6) ``save_fleet`` of the per-rung
+    fleet, ``restore_world`` of a 20k world onto the card with the
+    audit: bit-equal to the lane's world at the save, then 10 steps of
+    one K2 launch each, finite and >= 0, an empty audit; (4) the fused
+    fleet's lanes readmitted into a ``fusion="auto"`` scheduler for 10
+    steps: its sets and envelope; (5) phase 7's four worlds under
+    ``FleetWarden(policy="heal", cadence=10, keep=2)``, with and without
+    ``guard.inject_nan`` into world 2 after step 5: the poisoned world
+    is tripped, evicted and readmitted from its stream, the other three
+    bit-equal to the fault-free run; seconds per cadence save, the steps
+    from the trip to eviction and readmission, the heal's restore
+    seconds; no sentinel trip but the poisoned world's and no invariant
+    flag but ``dead_param_residue`` (ROADMAP C3, on which the warden acts
+    as on any trip).
 
 Phases 10, 11 and 14 run right after the build, 15 after 5, 19 and 20
 after 5 and after 15, 16 and 17 after 7, 12, 18, 13 and 21 after 9, 22
-last.
+and 23 last.
 
 With ``--parent DIR`` the run also builds an earlier version of the
 integrator kernel from DIR (its ``magicsoup_tpu_torch/ops/
@@ -210,7 +250,8 @@ a ``{"token_workload": ...}`` line, ``{"persistence": ...}`` and
 ``{"genome_ops": ...}`` line, the flags per window, the seeded and real-state
 K2 lines, the digests, sweep, ladder, microbenchmark and det lines, a
 ``{"differential": ...}`` line, a ``{"guard": ...}`` line, a
-``{"kernels": [...]}`` line, the card's name and power limit, and as its
+``{"fused_fleet": ...}`` line, a ``{"kernels": [...]}`` line (K1, K2, the
+grouped launch, K3, threefry), the card's name and power limit, and as its
 last line ``{"ok": true, "device": {...}}``.  Any failure raises, and the
 run exits non-zero without that last line.  It needs one card.
 
@@ -311,6 +352,7 @@ API_CELLS = 100
 GOLDEN_DIR = ROOT / "tests" / "fast" / "data" / "golden"
 DIFF_GOLDEN = ("differential_seed11.json", "differential_seed23.json")
 DIFF_CUDA_GOLDEN = "differential_pallas_seed11.json"
+DIFF_FUSED_GOLDEN = "differential_fused2_seed11.json"
 #: where the real-state checks save their worst tiles (``--dump DIR``)
 DUMP_DIR = None
 STEPPER_KW = dict(
@@ -629,17 +671,18 @@ def _world_kernel_check(torch, world) -> dict:
     }
 
 
-def _workload(torch, seed: int = SEED, genome_backend: str = "string"):
+def _workload(torch, seed: int = SEED, genome_backend: str = "string",
+              n_cells: int = N_CELLS, map_size: int = MAP_SIZE):
     """A world of the main paths, with its cells spawned."""
     import magicsoup_tpu_torch as mt
     from magicsoup_tpu_torch.examples.wood_ljungdahl import CHEMISTRY
 
     rng = random.Random(seed)
     t0 = time.perf_counter()
-    world = mt.World(chemistry=CHEMISTRY, map_size=MAP_SIZE, seed=seed,
+    world = mt.World(chemistry=CHEMISTRY, map_size=map_size, seed=seed,
                      genome_backend=genome_backend)
     world.spawn_cells(
-        [mt.random_genome(s=GENOME_SIZE, rng=rng) for _ in range(N_CELLS)]
+        [mt.random_genome(s=GENOME_SIZE, rng=rng) for _ in range(n_cells)]
     )
     torch.cuda.synchronize()
     spawn_s = time.perf_counter() - t0
@@ -1838,23 +1881,28 @@ def _differential(torch) -> dict:
     from magicsoup_tpu_torch.ops import cuda_integrate as ci
     from magicsoup_tpu_torch.ops import cuda_prng
 
-    paths = differential.PATHS + differential.FLEET_PATHS + differential.TOKEN_PATHS
+    paths = (differential.PATHS + differential.FLEET_PATHS + differential.TOKEN_PATHS
+             + differential.FUSED_PATHS)
     out = {"paths": list(paths), "seconds": {"cuda": 0.0, "cpu": 0.0}, "launches": {}}
+    states, structural = {}, {}
     for name in DIFF_GOLDEN:
         rec = json.loads((GOLDEN_DIR / name).read_text())
         kw = dict(seed=rec["seed"], map_size=rec["map_size"], n_cells=rec["n_cells"],
                   digest_fn=_both_digests)
         for path in paths:
-            ci.launches = cuda_prng.launches = 0
+            ci.launches = ci.grouped_launches = cuda_prng.launches = 0
             t0 = time.perf_counter()
             card = differential.run_path(path, device="cuda", **kw)
             out["seconds"]["cuda"] += time.perf_counter() - t0
-            out["launches"][f"{path}/seed{rec['seed']}"] = {"k1_k2": ci.launches,
-                                                          "threefry": cuda_prng.launches}
+            out["launches"][f"{path}/seed{rec['seed']}"] = {
+                "k1_k2": ci.launches, "grouped": ci.grouped_launches,
+                "threefry": cuda_prng.launches}
             t0 = time.perf_counter()
             cpu = differential.run_path(path, device="cpu", **kw)
             out["seconds"]["cpu"] += time.perf_counter() - t0
             got = [d[0] for d in card]
+            states[path, rec["seed"]] = [d[1] for d in card]
+            structural[path, rec["seed"]] = got
             if got != rec["structural_digests"]:
                 at = [b for b, x, y in zip(differential.BOUNDARIES, got, rec["structural_digests"])
                       if x != y]
@@ -1865,6 +1913,16 @@ def _differential(torch) -> dict:
                     raise AssertionError(
                         f"differential {path}, seed {rec['seed']}: the card's state digest"
                         f" differs from the CPU's at {b}: {_first_divergence(h[2], c[2])}")
+    # the fused paths: fused2 against its own golden file, and each equal
+    # to its solo path's full digests at every boundary on the card
+    rec = json.loads((GOLDEN_DIR / DIFF_FUSED_GOLDEN).read_text())
+    if structural["fused2", rec["seed"]] != rec["structural_digests"]:
+        raise AssertionError(f"differential fused2 on the card differs from {DIFF_FUSED_GOLDEN}")
+    for (path, seed), digests in states.items():
+        solo = {"fused2": "k1", "fused_fleet": "k4"}.get(path)
+        if solo is not None and digests != states[solo, seed]:
+            at = [b for b, x, y in zip(differential.BOUNDARIES, digests, states[solo, seed]) if x != y]
+            raise AssertionError(f"differential {path}, seed {seed}: differs from {solo} at {at}")
     rec = json.loads((GOLDEN_DIR / DIFF_CUDA_GOLDEN).read_text())
     ci.launches = 0
     got = differential.run_path("cuda_k1", device="cuda", seed=rec["seed"],
@@ -1875,7 +1933,8 @@ def _differential(torch) -> dict:
     if got != rec["structural_digests"] or ci.launches < steps:
         raise AssertionError(f"differential cuda_k1: golden digests equal {got == rec['structural_digests']},"
                              f" {ci.launches} K2 launches in {steps} steps")
-    out["golden_equal"] = len(DIFF_GOLDEN) * len(paths) + 1
+    out["golden_equal"] = len(DIFF_GOLDEN) * len(paths) + 2
+    out["fused_equal_solo"] = 2 * len(DIFF_GOLDEN)
     out["state_digests_card_equal_cpu"] = len(DIFF_GOLDEN) * len(paths)
     return out
 
@@ -2615,6 +2674,585 @@ def _guard_phase(torch) -> tuple[dict, dict]:
             "faults": faults, "wall_s": time.perf_counter() - t0}, launches
 
 
+# --------------------------------------------------------------------- #
+# phase 23: the grouped launch and the rest of the fleet                #
+# --------------------------------------------------------------------- #
+
+#: the grouped launch's seeded groups, (worlds, rows) at GROUPED_PS, then
+#: one group of SWEEP_CELLS rows at the first SWEEP_SHAPES entry whose
+#: launch plan is not the resident route
+GROUPED_GROUPS = ((2, 16384), (2, 32768))
+GROUPED_PS = (32, 28)
+#: the mixed-rung fleet, per rung: target cells, map size, seeds, capacity
+MIXED_RUNGS = ((10_000, 128, (42, 43), 16384), (20_000, 256, (44, 45), 32768))
+MIXED_WINDOW = 30
+MIXED_PROFILE = 5
+AUTO_STEPS = 10
+#: the warden: phase 7's four worlds under heal, cadence 10, keep 2;
+#: world 2 poisoned after step 5
+WARDEN_STEPS = 20
+WARDEN_POISON_AFTER = 5
+WARDEN_WORLD = 2
+#: the restored world's steps after restore_world
+FLEET_RESTORE_STEPS = 10
+FLEET_DIR = ROOT / "build" / "chip_smoke_fleet"
+#: where restore_world places the world
+FLEET_DEVICE = "cuda"
+
+
+def _mixed_kw(target: int) -> dict:
+    """A mixed-fleet lane's stepper arguments: phase 7's selection at
+    K = 1 and its rung's target, at the rung's capacity: with growth on,
+    a world whose divisions crowd its capacity doubles it and moves to
+    another rung mid-window."""
+    return dict(STEPPER_KW, target_cells=target, megastep=1, auto_grow=False)
+
+
+def _device_inputs(torch, B: int, c: int, p: int, s: int, seed: int):
+    """Seeded integrator inputs of B worlds of c rows, drawn on the card
+    in the ranges of performance/pallas_bisect.py, rows 8-15 of every
+    world dead."""
+    from magicsoup_tpu_torch.ops.integrate import CellParams
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+
+    def uniform(shape, lo, hi):
+        return torch.rand(shape, generator=gen, device="cuda") * (hi - lo) + lo
+
+    def ints(shape, lo, hi):
+        return torch.randint(lo, hi, shape, generator=gen, device="cuda", dtype=torch.int16)
+
+    params = CellParams(
+        Ke=uniform((B, c, p), 0.1, 10), Kmf=uniform((B, c, p), 0.1, 10),
+        Kmb=uniform((B, c, p), 0.1, 10), Kmr=uniform((B, c, p, s), 0.1, 10),
+        Vmax=uniform((B, c, p), 0, 2), N=ints((B, c, p, s), -2, 3),
+        Nf=ints((B, c, p, s), 0, 3), Nb=ints((B, c, p, s), 0, 3), A=ints((B, c, p, s), -2, 3),
+    )
+    for t in params:
+        t[:, 8:16] = 0
+    return uniform((B, c, s), 0, 4), params
+
+
+def _grouped_times(torch, groups) -> dict:
+    """The grouped launch against the groups' own launches, timed in
+    turns (own, grouped, grouped, own), the plain version's time, host
+    microseconds per call of each, CTAs per SM and the bound summed over
+    the groups."""
+    from magicsoup_tpu_torch.ops import cuda_integrate as ci
+    from magicsoup_tpu_torch.performance import cuda_median_ms
+
+    Xs, ps = [X for X, _ in groups], [prm for _, prm in groups]
+    grouped = lambda: ci.integrate_signals_cuda_grouped(Xs, ps)  # noqa: E731
+    own = lambda: [ci.integrate_signals_cuda(X, prm) for X, prm in groups]  # noqa: E731
+    times = [cuda_median_ms(f, KERNEL_REPS) for f in (own, grouped, grouped, own)]
+    plain_ms = cuda_median_ms(
+        lambda: [ci.integrate_signals_tiled(X, prm, ci.TILE_C) for X, prm in groups], PLAIN_REPS)
+    bounds = [_bound(torch, X, prm) for X, prm in groups]
+    bytes_ms = sum(b["bytes_ms"] for b in bounds)
+    ops_ms = sum(b["operations_ms"] for b in bounds)
+    return {
+        "ms": (times[1] + times[2]) / 2,
+        "separate_ms": (times[0] + times[3]) / 2,
+        "ms_in_turns": times,
+        "plain_ms": plain_ms,
+        "host_us_per_call": _host_us(torch, grouped),
+        "separate_host_us_per_call": _host_us(torch, own),
+        "occupancy": ci.grouped_occupancy(Xs, ps),
+        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "bytes": sum(b["bytes"] for b in bounds),
+        "bytes_ms": bytes_ms,
+        "operations": sum(b["operations"] for b in bounds),
+        "operations_ms": ops_ms,
+    }
+
+
+def _grouped_seeded(torch) -> dict:
+    """Phase 23.1: the grouped launch over seeded groups; each world's
+    sha256 equal to its group's own launch's, each group under the fast
+    contract against the plain version, dead rows unchanged, one launch
+    per route."""
+    import numpy as np
+
+    from magicsoup_tpu_torch.ops import cuda_integrate as ci
+
+    limit = ci.smem_limit(0)
+    off = next((ps for ps in SWEEP_SHAPES if ci.launch_plan(*ps, limit).route != "resident"), None)
+    if off is None:
+        raise AssertionError("grouped launch: every SWEEP_SHAPES entry is on the resident route")
+    specs = [(B, c) + GROUPED_PS for B, c in GROUPED_GROUPS] + [(1, SWEEP_CELLS) + off]
+    groups = [_device_inputs(torch, *spec, seed=300 + g) for g, spec in enumerate(specs)]
+    routes = {ci.launch_plan(prm.Ke.shape[-1], X.shape[2], limit).route == "resident"
+              for X, prm in groups}
+    before = ci.grouped_launches
+    outs = ci.integrate_signals_cuda_grouped([X for X, _ in groups], [prm for _, prm in groups])
+    torch.cuda.synchronize()
+    launched = ci.grouped_launches - before
+    if launched != len(routes):
+        raise AssertionError(f"grouped launch: {launched} launches for {len(routes)} routes")
+    per_group, max_abs = [], 0.0
+    for g, ((X, prm), out) in enumerate(zip(groups, outs)):
+        own = ci.integrate_signals_cuda(X, prm)
+        ref = ci.integrate_signals_tiled(X, prm, ci.TILE_C)
+        torch.cuda.synchronize()
+        for w in range(X.shape[0]):
+            if _sha256(out[w]) != _sha256(own[w]):
+                raise AssertionError(f"grouped launch: group {g} world {w} differs from its own launch")
+        if not torch.equal(out[:, 8:16], X[:, 8:16]):
+            raise AssertionError(f"grouped launch: group {g}: dead rows changed")
+        out_np, ref_np = out.cpu().numpy(), ref.cpu().numpy()
+        if not (np.isfinite(out_np).all() and (out_np >= 0).all()):
+            raise AssertionError(f"grouped launch: group {g} is not finite and >= 0")
+        q99, rel_max, abs_max = _fast_errors(out_np, ref_np)
+        if not (q99 < 1e-4 and rel_max < 0.15):
+            raise AssertionError(f"grouped launch: group {g} vs plain: q99 {q99}, max {rel_max}")
+        max_abs = max(max_abs, abs_max)
+        B, c, s = X.shape
+        per_group.append({
+            "B": B, "c": c, "p": prm.Ke.shape[-1], "s": s,
+            "route": ci.launch_plan(prm.Ke.shape[-1], s, limit).route,
+            "q99_rel_err": q99, "max_rel_err": rel_max, "max_abs_err": abs_max,
+            "worlds_sha256_equal_own_launch": True,
+        })
+    got = {"groups": per_group, "launches": launched, "max_abs_err": max_abs,
+           **_grouped_times(torch, groups)}
+    print(f"grouped launch, seeded: {len(groups)} groups in {launched} launches,"
+          f" {got['ms']:.4f} ms against {got['separate_ms']:.4f} ms for the groups' own"
+          f" launches (bound {got['bound_ms']:.4f} ms), occupancy {got['occupancy']}", flush=True)
+    return got
+
+
+class _GroupedTap:
+    """Keeps a copy of the grouped integrator call's inputs at its first
+    call after :meth:`arm` (the copy launches no kernel)."""
+
+    def __init__(self):
+        self.inputs = None
+        self._armed = False
+
+    def arm(self) -> None:
+        self._armed, self.inputs = True, None
+
+    def __enter__(self):
+        from magicsoup_tpu_torch.ops import backends
+        from magicsoup_tpu_torch.ops.integrate import CellParams
+
+        self._inner = inner = backends.integrate_grouped
+        tap = self
+
+        def tapped(names, Xs, params_list):
+            if tap._armed:
+                tap._armed = False
+                tap.inputs = [(X.clone(), CellParams(*(t.clone() for t in prm)))
+                              for X, prm in zip(Xs, params_list)]
+            return inner(names, Xs, params_list)
+
+        backends.integrate_grouped = tapped
+        return self
+
+    def __exit__(self, *exc):
+        from magicsoup_tpu_torch.ops import backends
+
+        backends.integrate_grouped = self._inner
+
+
+def _mixed_fleets(torch, taps: _Taps, gtap: _GroupedTap) -> tuple[dict, dict]:
+    """Phase 23.2: two fleets of the same four worlds on two rungs, one
+    per rung and one fused, in interleaved windows; returns the record
+    and the fleets."""
+    import magicsoup_tpu_torch as mt
+    from magicsoup_tpu_torch.analysis import runtime
+    from magicsoup_tpu_torch.ops import cuda_integrate as ci
+    from magicsoup_tpu_torch.ops import cuda_prng
+    from magicsoup_tpu_torch.telemetry.recorder import fetch_stats
+
+    fleets = {}
+    for fusion in ("rung", "fleet"):
+        fleet = mt.FleetScheduler(block=2, fusion=fusion)
+        worlds = []
+        for target, size, seeds, cap in MIXED_RUNGS:
+            for seed in seeds:
+                w = _workload(torch, seed=seed, n_cells=target, map_size=size)[0]
+                if w._capacity != cap:
+                    raise AssertionError(f"mixed fleet: a {target}-cell world has capacity {w._capacity}")
+                fleet.admit(w, **_mixed_kw(target))
+                worlds.append(w)
+        fleets[fusion] = (fleet, worlds)
+    n_worlds = len(fleets["rung"][1])
+    taps.window = "mixed fleet warm-up"
+    for fleet, _ in fleets.values():
+        fleet.step()
+        fleet.drain()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    windows, launches, threefry = [], {"rung": 0, "fleet": 0}, 0
+    for i, fusion in enumerate(("rung", "fleet", "fleet", "rung")):
+        fleet, _ = fleets[fusion]
+        taps.window = f"mixed fleet {fusion} window {i}"
+        if i == 1:
+            gtap.arm()
+        runtime.reset_counters()
+        ci.launches = ci.grouped_launches = cuda_prng.launches = 0
+        fetch0 = fetch_stats()["fetches"]
+        t0 = time.perf_counter()
+        for _ in range(MIXED_WINDOW):
+            fleet.step()
+        fleet.drain()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        census = runtime.snapshot()
+        n_groups = len([g for sib in fleet._groups.values() for g in sib])
+        want = ((MIXED_WINDOW, MIXED_WINDOW, 0) if fusion == "fleet"
+                else (n_groups * MIXED_WINDOW, 0, n_groups * MIXED_WINDOW))
+        got = (census["dispatches"], ci.grouped_launches, ci.launches)
+        if n_groups != 2 or got != want:
+            raise AssertionError(f"mixed fleet {fusion}: {n_groups} groups; (dispatches, grouped"
+                                 f" launches, K2 launches) {got}, want {want}; capacities"
+                                 f" {[lane._cap for lane in fleet.lanes]}")
+        launches[fusion] += ci.grouped_launches if fusion == "fleet" else ci.launches
+        threefry += cuda_prng.launches
+        windows.append({
+            "fusion": fusion,
+            "fleet_steps_per_s": MIXED_WINDOW / dt,
+            "world_steps_per_s": n_worlds * MIXED_WINDOW / dt,
+            "window_s": dt,
+            "dispatches_per_fleet_step": census["dispatches"] / MIXED_WINDOW,
+            "fused_groups_per_fleet_step": census["fused_groups"] / MIXED_WINDOW,
+            "fetches_per_fleet_step": (fetch_stats()["fetches"] - fetch0) / MIXED_WINDOW,
+            "k2_launches_per_fleet_step": ci.launches / MIXED_WINDOW,
+            "grouped_launches_per_fleet_step": ci.grouped_launches / MIXED_WINDOW,
+            "threefry_launches_per_fleet_step": cuda_prng.launches / MIXED_WINDOW,
+        })
+        print(f"mixed fleet window {i} ({fusion}): {windows[-1]['world_steps_per_s']:.2f}"
+              f" world-steps/s, {windows[-1]['dispatches_per_fleet_step']} dispatches,"
+              f" {windows[-1]['fetches_per_fleet_step']} fetches,"
+              f" {windows[-1]['k2_launches_per_fleet_step']} K2 and"
+              f" {windows[-1]['grouped_launches_per_fleet_step']} grouped launches per fleet step",
+              flush=True)
+    profiles = {}
+    for fusion, (fleet, _) in fleets.items():
+        taps.window = f"mixed fleet {fusion} profiled"
+
+        def _more(fleet=fleet):
+            for _ in range(MIXED_PROFILE):
+                fleet.step()
+            fleet.drain()
+
+        profiles[fusion] = _profile(torch, _more, MIXED_PROFILE)
+    peak = torch.cuda.max_memory_allocated()
+    taps.window = "mixed fleet flush"
+    for fleet, _ in fleets.values():
+        fleet.flush()
+    for i in range(n_worlds):
+        a, b = fleets["rung"][1][i], fleets["fleet"][1][i]
+        _check_state(b, f"mixed fleet world {i}")
+        diff = _first_divergence(_state_arrays(a), _state_arrays(b))
+        if diff is not None:
+            raise AssertionError(f"mixed fleet world {i}: the fused world differs from its"
+                                 f" per-rung twin: {diff}")
+    summed = {f: sum(w["world_steps_per_s"] for w in windows if w["fusion"] == f) / 2
+              for f in ("rung", "fleet")}
+    return {
+        "windows": windows,
+        "world_steps_per_s_mean": summed,
+        "profile": profiles,
+        "peak_mem_bytes": peak,
+        "worlds": [{"n_cells": w.n_cells, "capacity": w._capacity} for w in fleets["fleet"][1]],
+        "fused_bit_equal_to_per_rung": True,
+        "launches": launches,
+        "threefry_launches": threefry,
+    }, fleets
+
+
+def _grouped_real_state(torch, inputs) -> dict:
+    """Phase 23.3: the grouped launch on the fused fleet's own inputs at
+    its first timed step: each group equal to its own launch, each under
+    the real-state contract of phase 9 on its rows with a protein; the
+    grouped and the own launches' times and the plain version's."""
+    from magicsoup_tpu_torch.ops import cuda_integrate as ci
+
+    outs = ci.integrate_signals_cuda_grouped([X for X, _ in inputs], [p for _, p in inputs])
+    groups = []
+    for g, ((X, prm), out) in enumerate(zip(inputs, outs)):
+        if not torch.equal(out, ci.integrate_signals_cuda(X, prm)):
+            raise AssertionError(f"grouped launch on the fleet's state: group {g} differs from its own launch")
+        active = prm.Vmax.ne(0).any(-1)
+        groups.append(_real_state_check(torch, X, prm, active, f"grouped launch, group {g}, fleet state"))
+    return {"groups": groups, "max_abs_err": max(g["max_abs_err"] for g in groups),
+            **_grouped_times(torch, inputs)}
+
+
+def _auto_fusion(torch, fleets) -> dict:
+    """Phase 23.4: the fused fleet's lanes readmitted into a
+    ``fusion="auto"`` scheduler for AUTO_STEPS steps: the sets it forms
+    and its envelope."""
+    import magicsoup_tpu_torch as mt
+    from magicsoup_tpu_torch.ops import cuda_integrate as ci
+
+    fleet, worlds = fleets["fleet"]
+    lanes = list(fleet.lanes)
+    for lane in lanes:
+        fleet.retire(lane)
+    auto = mt.FleetScheduler(block=2, fusion="auto")
+    for lane in lanes:
+        auto.readmit(lane)
+    plan = auto._plan_fusion
+    sets = []
+
+    def recorded(groups):
+        got = plan(groups)
+        sets.append([[lanes.index(lane) for g in s for _, lane in g.members()] for s in got])
+        return got
+
+    auto._plan_fusion = recorded
+    ci.launches = ci.grouped_launches = 0
+    t0 = time.perf_counter()
+    for _ in range(AUTO_STEPS):
+        auto.step()
+    auto.drain()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    auto.flush()
+    for i, w in enumerate(worlds):
+        _check_state(w, f"auto fleet world {i}")
+    formed = sorted({json.dumps(s) for s in sets})
+    print(f"fusion auto: sets {formed}, envelope {[auto._env_k, auto._env_rec]}", flush=True)
+    return {"sets": [json.loads(s) for s in formed], "envelope": [auto._env_k, auto._env_rec],
+            "world_steps_per_s": len(worlds) * AUTO_STEPS / dt,
+            "k2_launches": ci.launches, "grouped_launches": ci.grouped_launches}
+
+
+def _fleet_checkpoint(torch, fleets, tmp: Path) -> dict:
+    """Phase 23.6: ``save_fleet`` of the per-rung mixed fleet, then
+    ``restore_world`` of one 20k world onto the card with the audit: its
+    arrays equal the lane's world at the save, then 10 steps with one K2
+    launch each, state finite and >= 0, the audit empty."""
+    import magicsoup_tpu_torch as mt
+    from magicsoup_tpu_torch import guard
+    from magicsoup_tpu_torch.check import audit_world
+    from magicsoup_tpu_torch.fleet import restore_world, save_fleet
+    from magicsoup_tpu_torch.ops import cuda_integrate as ci
+
+    fleet, worlds = fleets["rung"]
+    index = 2  # the first 20k world
+    path = tmp / "fleet.msck"
+    t0 = time.perf_counter()
+    save_fleet(path, fleet)
+    save_s = time.perf_counter() - t0
+    saved = _state_arrays(fleet.lanes[index].world)
+    t0 = time.perf_counter()
+    world, aux, meta = restore_world(path, index, device=FLEET_DEVICE, audit=True)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    diff = _first_divergence(saved, _state_arrays(world))
+    if diff is not None or world.device.type != FLEET_DEVICE:
+        raise AssertionError(f"restore_world: differs from the lane at the save: {diff}, on {world.device}")
+    st = mt.PipelinedStepper(world, **_mixed_kw(MIXED_RUNGS[1][0]))
+    guard.restore_stepper(st, aux)
+    ci.launches = 0
+    for _ in range(FLEET_RESTORE_STEPS):
+        st.step()
+    st.drain()
+    torch.cuda.synchronize()
+    launches = ci.launches
+    st.flush()
+    _check_state(world, "restore_world")
+    violations = audit_world(world)
+    if launches != FLEET_RESTORE_STEPS or violations:
+        raise AssertionError(f"restore_world: {launches} K2 launches in {FLEET_RESTORE_STEPS}"
+                             f" steps, audit {violations}")
+    print(f"fleet checkpoint: save_fleet {save_s:.3f} s, {path.stat().st_size} B;"
+          f" restore_world {restore_s:.3f} s", flush=True)
+    return {"save_fleet_s": save_s, "bytes": path.stat().st_size, "worlds": meta["worlds"],
+            "restore_world_s": restore_s, "n_cells": world.n_cells,
+            "bit_equal_to_lane": True, "audit": [], "restored_launches": launches}
+
+
+def _warden_run(torch, tmp: Path, poison: bool) -> dict:
+    """Phase 23.5's fleet: phase 7's four worlds under a heal warden
+    (cadence 10, keep 2) for WARDEN_STEPS steps; with ``poison``,
+    ``guard.inject_nan`` poisons world WARDEN_WORLD after step
+    WARDEN_POISON_AFTER.  Returns the healthy worlds' arrays and what the
+    warden did when."""
+    import magicsoup_tpu_torch as mt
+    from magicsoup_tpu_torch import guard
+    from magicsoup_tpu_torch.fleet import FleetWarden
+    from magicsoup_tpu_torch.guard import resume
+
+    worlds = [_workload(torch, seed=SEED + i)[0] for i in range(FLEET_WORLDS)]
+    fleet = mt.FleetScheduler(block=FLEET_WORLDS)
+    lanes = [fleet.admit(w, megastep=1, **STEPPER_KW) for w in worlds]
+    warden = FleetWarden(fleet, policy="heal", checkpoint_dir=tmp, cadence=10, keep=2)
+    spent = {"save_run": [], "restore_run": []}
+    saved = (resume.save_run, resume.restore_run)
+
+    def timed(name, fn):
+        def call(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                spent[name].append((warden._steps, time.perf_counter() - t0))
+        return call
+
+    resume.save_run = timed("save_run", saved[0])
+    resume.restore_run = timed("restore_run", saved[1])
+    # every trip the warden takes, decoded: (fleet step, label, kind, flags)
+    trips = []
+    report = warden.report
+
+    def tapped(lane, kind, out):
+        from magicsoup_tpu_torch.check.invariants import decode_invariants
+        from magicsoup_tpu_torch.guard.sentinel import decode_health
+
+        rec = warden._by_lane.get(id(lane))
+        flags = decode_health(out.health) if kind == "sentinel" else decode_invariants(out.invariants)
+        trips.append((warden._steps, rec.label if rec else None, kind,
+                      sorted(k for k, v in flags.items() if v)))
+        return report(lane, kind, out)
+
+    warden.report = tapped
+    heal = warden._heal
+    heals = []
+
+    def timed_heal(rec, step):
+        t0 = time.perf_counter()
+        heal(rec, step)
+        heals.append({"world": rec.label, "step": step, "s": time.perf_counter() - t0})
+
+    warden._heal = timed_heal
+    events = {}
+    try:
+        for i in range(WARDEN_STEPS):
+            fleet.step()
+            if poison and i + 1 == WARDEN_POISON_AFTER:
+                guard.inject_nan(lanes[WARDEN_WORLD])
+            st = warden.status_of(WARDEN_WORLD)
+            hits = (
+                ("trip", any(t[1] == WARDEN_WORLD and t[2] == "sentinel" for t in trips)),
+                ("evicted", "trip" in events and st.status in ("cooldown", "parked")),
+                ("readmitted", "evicted" in events and st.status == "active"),
+            )
+            for name, hit in hits:
+                if hit and name not in events:
+                    events[name] = i + 1
+        fleet.flush()
+    finally:
+        resume.save_run, resume.restore_run = saved
+    healthy = {i: _state_arrays(w) for i, w in enumerate(worlds) if i != WARDEN_WORLD}
+    for i, w in enumerate(worlds):
+        if i != WARDEN_WORLD:
+            _check_state(w, f"warden world {i}")
+    cadence = {}
+    for step, dt in spent["save_run"]:
+        cadence[step] = cadence.get(step, 0.0) + dt
+    return {"healthy": healthy, "events": events, "trips": trips,
+            "statuses": [vars(s) for s in warden.statuses()],
+            "cadence_save_s": cadence, "restore_s": [dt for _, dt in spent["restore_run"]],
+            "heals": heals,
+            "lane": next(rec.lane for rec in warden._records if rec.label == WARDEN_WORLD)}
+
+
+def _warden_phase(torch, tmp: Path) -> dict:
+    """Phase 23.5: the warden heals a poisoned world; the three healthy
+    worlds bit-equal to a fault-free run on the same cadence."""
+    clean = _warden_run(torch, tmp / "clean", poison=False)
+    run = _warden_run(torch, tmp / "poisoned", poison=True)
+    for i, arrays in clean["healthy"].items():
+        diff = _first_divergence(arrays, run["healthy"][i])
+        if diff is not None:
+            raise AssertionError(f"warden: healthy world {i} differs from the fault-free run: {diff}")
+    status = run["statuses"][WARDEN_WORLD]
+    ev = run["events"]
+    if not ({"trip", "evicted", "readmitted"} <= set(ev) and status["restarts"] >= 1
+            and status["status"] == "active" and run["restore_s"]):
+        raise AssertionError(f"warden: world {WARDEN_WORLD} was not healed: {status}, events {ev}")
+    _check_state(run["lane"].world, "warden healed world")
+    # the only sentinel trip is the poisoned world's; an invariant trip may
+    # only be dead_param_residue, which the reference trips too (ROADMAP
+    # C3) and on which the warden acts as on any trip
+    for name, r in (("fault-free", clean), ("poisoned", run)):
+        for step, label, kind, flags in r["trips"]:
+            if kind == "sentinel" and not (r is run and label == WARDEN_WORLD):
+                raise AssertionError(f"warden, {name} run: sentinel trip of world {label}: {flags}")
+            if kind == "invariant" and flags != ["dead_param_residue"]:
+                raise AssertionError(f"warden, {name} run: world {label} tripped {flags}")
+    out = {
+        "statuses": run["statuses"],
+        "poisoned_after_step": WARDEN_POISON_AFTER,
+        "trip_at_step": ev["trip"],
+        "steps_trip_to_eviction": ev["evicted"] - ev["trip"],
+        "steps_trip_to_readmission": ev["readmitted"] - ev["trip"],
+        "cadence_save_s_4_worlds": {str(k): v for k, v in clean["cadence_save_s"].items()},
+        "heal_restore_s": run["restore_s"],
+        # each heal: restore_run, admission and restore_stepper
+        "heals": run["heals"],
+        "trips": run["trips"],
+        "fault_free_trips": clean["trips"],
+        "fault_free_statuses": clean["statuses"],
+        "healthy_bit_equal_to_fault_free": True,
+    }
+    print(f"warden: trip at step {ev['trip']}, evicted {out['steps_trip_to_eviction']} and"
+          f" readmitted {out['steps_trip_to_readmission']} steps later; heals {run['heals']};"
+          f" invariant trips (fault-free, poisoned) {len(clean['trips'])},"
+          f" {sum(t[2] == 'invariant' for t in run['trips'])}", flush=True)
+    return out
+
+
+def _fleet_phase(torch) -> dict:
+    """Phase 23: the grouped launch and the rest of the fleet at the
+    headline configuration; returns its record and the grouped kernel's
+    entry of the kernels line."""
+    import shutil
+
+    shutil.rmtree(FLEET_DIR, ignore_errors=True)
+    FLEET_DIR.mkdir(parents=True)
+    t0 = time.perf_counter()
+    try:
+        seeded = _grouped_seeded(torch)
+        with _Taps() as taps, _GroupedTap() as gtap:
+            mixed, fleets = _mixed_fleets(torch, taps, gtap)
+        if taps.unexpected():
+            raise AssertionError(f"mixed fleet: flags other than dead_param_residue: {taps.unexpected()}")
+        mixed["flags_per_window"] = taps.flags
+        if gtap.inputs is None:
+            raise AssertionError("mixed fleet: the fused windows made no grouped integrator call")
+        real = _grouped_real_state(torch, gtap.inputs)
+        del gtap
+        checkpoint = _fleet_checkpoint(torch, fleets, FLEET_DIR)
+        auto = _auto_fusion(torch, fleets)
+        del fleets
+        warden = _warden_phase(torch, FLEET_DIR / "warden")
+    finally:
+        shutil.rmtree(FLEET_DIR, ignore_errors=True)
+    record = {"grouped_seeded": seeded, "mixed_fleet": mixed, "grouped_real_state": real,
+              "auto": auto, "warden": warden, "fleet_checkpoint": checkpoint,
+              "wall_s": time.perf_counter() - t0}
+    entry = {
+        "name": "integrate_signals_grouped",
+        "route": "cuda",
+        "source": "magicsoup_tpu_torch/csrc/integrate.cu",
+        "replaces": "magicsoup_tpu/ops/pallas_integrate.py:186",
+        # the fused fleet's groups at its first timed step
+        "shape": [{k: g["shape"][k] for k in ("B", "q", "p", "s")} for g in real["groups"]],
+        "launches": mixed["launches"]["fleet"],
+        "launches_per_fused_step": 1.0,
+        "max_abs_err": max(seeded["max_abs_err"], real["max_abs_err"]),
+        "ms": real["ms"],
+        "separate_ms": real["separate_ms"],
+        "plain_ms": real["plain_ms"],
+        "bound_ms": real["bound_ms"],
+        "bound_by": real["bound_by"],
+        "library_ms": None,
+        "occupancy": real["occupancy"],
+        "seeded_ms": seeded["ms"],
+        "seeded_separate_ms": seeded["separate_ms"],
+        "ok": True,
+    }
+    return record, entry
+
+
 def main() -> None:
     global DUMP_DIR, PARENT
     import argparse
@@ -2748,6 +3386,10 @@ def main() -> None:
     print(json.dumps({"guard": guard_phase}))
     kernel["guard_launches"] = {"classic_with_recorder": guard_launches["k1_classic_with_recorder"]}
     k2["guard_launches"] = {k[3:]: v for k, v in guard_launches.items() if k.startswith("k2_")}
+    fleet_phase, grouped = _fleet_phase(torch)
+    print(json.dumps({"fused_fleet": fleet_phase}))
+    k2["fleet_restore_launches"] = fleet_phase["fleet_checkpoint"]["restored_launches"]
+    k2["mixed_fleet_per_rung_launches"] = fleet_phase["mixed_fleet"]["launches"]["rung"]
 
     from magicsoup_tpu_torch.performance import card_line
 
@@ -2760,8 +3402,9 @@ def main() -> None:
         "token_fleet": fleet_token["threefry_launches"],
         "guard_recorder_windows": guard_launches["threefry_recorder_windows"],
         "guard_resume_cases": guard_launches["threefry_resume_cases_parent"],
+        "mixed_fleet": fleet_phase["mixed_fleet"]["threefry_launches"],
     }
-    print(json.dumps({"kernels": [kernel, k2, _k3_entry(ladder),
+    print(json.dumps({"kernels": [kernel, k2, grouped, _k3_entry(ladder),
                                   _threefry_entry(threefry, per_path)]}))
     print(card)
     print(json.dumps({

@@ -183,7 +183,9 @@ def audit_world(world, *, sample: int = 8) -> list[InvariantViolation]:
     dead_param_rows: set[int] = set()
     for leaf in params:
         t = np.asarray(leaf)
-        tail = t[n:].reshape(cap - n, -1)
+        # explicit row width: a full world's tail has no rows, and
+        # reshape cannot infer -1 from zero elements
+        tail = t[n:].reshape(cap - n, int(np.prod(t.shape[1:])))
         hit = np.nonzero((tail != 0).any(axis=1))[0]
         dead_param_rows.update((n + hit).tolist())
     if dead_param_rows:

@@ -33,9 +33,15 @@ chem phases, so the structural trajectory must not depend on the
 integrator's floats, and :func:`structural_digest` holds it to the
 committed golden file of the JAX package's ``pallas_k1`` path.
 
-``mesh2`` and ``token_mesh2`` need device meshes (ROADMAP A9), ``fused2``
-and ``fused_fleet`` the cross-rung fused fleet dispatch (ROADMAP A6);
-they raise ``ValueError`` until those are ported.
+The fused axis (``FUSED_PATHS``) steps the schedule world inside a
+mixed-rung fleet whose groups share one dispatch per megastep: its
+companions sit on a double-size map (another capacity rung), ``block=2``.
+``fused2`` runs K=1 under ``fusion="fleet"`` with one companion,
+``fused_fleet`` K=4 under ``fusion="auto"`` with two.  Their digests
+equal the solo paths' at every boundary.
+
+``mesh2`` and ``token_mesh2`` need device meshes (ROADMAP A9); they raise
+``ValueError`` until those are ported.
 
 Entry points run on ``"cuda"`` unless ``device="cpu"`` is passed.
 """
@@ -54,6 +60,10 @@ FLEET_PATHS = ("fleet1", "fleet4")
 #: fleet group with two companion token worlds
 TOKEN_PATHS = ("token_classic", "token_k1", "token_k4", "token_fleet3")
 
+#: cross-rung fused dispatch: the schedule world in a mixed-rung fleet
+#: (K=1 ``fusion="fleet"``, K=4 ``fusion="auto"``)
+FUSED_PATHS = ("fused2", "fused_fleet")
+
 #: the CUDA kernel's axis, in fast mode: the counterpart of the JAX
 #: package's ``pallas_k1``, held to its golden structural digests
 CUDA_PATHS = ("cuda_k1",)
@@ -62,8 +72,6 @@ CUDA_PATHS = ("cuda_k1",)
 NOT_PORTED = {
     "mesh2": "A9 (device meshes)",
     "token_mesh2": "A9 (device meshes)",
-    "fused2": "A6 (the cross-rung fused fleet dispatch)",
-    "fused_fleet": "A6 (the cross-rung fused fleet dispatch)",
 }
 
 #: chem-phase lengths between structural ops; multiples of 4 so the K=4
@@ -154,7 +162,7 @@ def _chem_phase(world, n_steps: int, path: str) -> None:
     if base == "classic":
         world.step_many(n_steps)
         return
-    k = 4 if base in ("k4", "fleet4") else 1
+    k = 4 if base in ("k4", "fleet4", "fused_fleet") else 1
     kwargs = dict(
         mol_name="dfx-atp",
         kill_below=-1.0,
@@ -168,13 +176,29 @@ def _chem_phase(world, n_steps: int, path: str) -> None:
         p_recombination=0.0,
     )
     assert n_steps % k == 0
-    if base in ("fleet1", "fleet4", "fleet3"):
+    if base in ("fleet1", "fleet4", "fleet3") + FUSED_PATHS:
         from magicsoup_tpu_torch.fleet import FleetScheduler
 
-        fleet = FleetScheduler(block=4 if base == "fleet3" else 1)
+        if base in FUSED_PATHS:
+            fleet = FleetScheduler(block=2, fusion="fleet" if base == "fused2" else "auto")
+        else:
+            fleet = FleetScheduler(block=4 if base == "fleet3" else 1)
         lane = fleet.admit(world, **kwargs)
         companions = []
-        if base == "fleet3":
+        if base in FUSED_PATHS:
+            # companions on another capacity rung: a double-size map
+            for j in range(1 if base == "fused2" else 2):
+                cw = mt.World(
+                    chemistry=world.chemistry,
+                    map_size=world.map_size * 2,
+                    seed=1500 + j,
+                    device=world.device,
+                )
+                cw.deterministic = True
+                crng = random.Random(700 + j)
+                cw.spawn_cells([mt.random_genome(s=200, rng=crng) for _ in range(4)])
+                companions.append(fleet.admit(cw, **kwargs))
+        elif base == "fleet3":
             for j in range(2):
                 cw = mt.World(
                     chemistry=world.chemistry,
@@ -220,7 +244,7 @@ def run_path(
         raise ValueError(
             f"path {path!r} is not ported yet: it comes with ROADMAP {NOT_PORTED[path]}"
         )
-    known = PATHS + FLEET_PATHS + TOKEN_PATHS + CUDA_PATHS
+    known = PATHS + FLEET_PATHS + TOKEN_PATHS + FUSED_PATHS + CUDA_PATHS
     if path not in known:
         raise ValueError(f"unknown path {path!r} (want one of {known})")
     device = resolve_device(device, "run_path")

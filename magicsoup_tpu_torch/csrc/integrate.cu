@@ -60,6 +60,7 @@
 // Tensor cores do not apply: each cell's N is its own small (p, s) matrix
 // times one vector, in f32 with exp/log between the products.
 #include <mutex>
+#include <vector>
 
 #include "integrate_body.cuh"
 
@@ -107,8 +108,8 @@ integrate_kernel(const float* __restrict__ X, const float* __restrict__ Ke,
 // cudaFuncSetAttribute once per kernel, device and larger size: the
 // attribute is a ceiling, so a launch that needs no more than the last one
 // set needs no call.
-template <bool RESIDENT>
-cudaError_t allow_smem(size_t bytes) {
+template <auto Kernel>
+cudaError_t allow_kernel_smem(size_t bytes) {
   constexpr int MAX_DEVICES = 64;
   static std::mutex mu;
   static size_t allowed[MAX_DEVICES] = {};
@@ -118,11 +119,120 @@ cudaError_t allow_smem(size_t bytes) {
   if (dev < 0 || dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
   std::lock_guard<std::mutex> lock(mu);
   if (allowed[dev] >= bytes) return cudaSuccess;
-  err = cudaFuncSetAttribute(integrate_kernel<RESIDENT>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+  err = cudaFuncSetAttribute(Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)bytes);
   if (err == cudaSuccess) allowed[dev] = bytes;
   return err;
+}
+
+template <bool RESIDENT>
+cudaError_t allow_smem(size_t bytes) {
+  return allow_kernel_smem<integrate_kernel<RESIDENT>>(bytes);
+}
+
+// ---- the grouped launch: the tiles of several groups of worlds ----
+// A fused fleet step runs the integrator for several rung groups at once,
+// each with its own worlds, rows, proteins, signals and world stride.  One
+// launch takes up to MAX_GROUPS of them: the grid is flattened over every
+// tile of every world of every group, and a CTA finds its group by the
+// groups' first tiles (a prefix of their tile counts).  Past that lookup it
+// runs integrate_kernel's body on its group's pointers, so each world of a
+// group computes exactly what the group's own launch computes: the same
+// device functions, the same tile and vote, the same build flags.
+constexpr int MAX_GROUPS = 16;
+
+struct Group {
+  const float* X;
+  const float* Ke;
+  const float* Kmf;
+  const float* Kmb;
+  const float* Kmr;
+  const float* Vmax;
+  const int16_t* N;
+  const int16_t* Nf;
+  const int16_t* Nb;
+  const int16_t* A;
+  float* out;
+  int64_t pstride;     // parameter rows per world
+  int64_t first_tile;  // the group's first CTA in the launch
+  int c, p, s, mask;
+};
+
+// Travels as one __grid_constant__ kernel parameter: no copy to the
+// device per launch, so the enqueue stays free of synchronization.
+struct GroupTable {
+  Group g[MAX_GROUPS];
+  int n;
+};
+
+// One route per launch: RESIDENT as in integrate_kernel (every group's
+// mask is RES_ALL), else each group's own mask.
+template <bool RESIDENT>
+__global__ void __launch_bounds__(THREADS, RESIDENT ? 2 : 1)
+integrate_grouped_kernel(const __grid_constant__ GroupTable table) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int64_t bid = blockIdx.x;
+  int gi = 0;
+  while (gi + 1 < table.n && table.g[gi + 1].first_tile <= bid) ++gi;
+  const Group& G = table.g[gi];
+  const int p = G.p, s = G.s;
+  const int64_t tiles = G.c / TILE_C;  // per world
+  const int64_t t = bid - G.first_tile;
+  const int64_t world = t / tiles;
+  const Globals g{G.Ke, G.Kmf, G.Kmb, G.Kmr, G.Vmax, G.N, G.Nf, G.Nb, G.A};
+  const int warp = threadIdx.x / WARP;
+  const int lane = threadIdx.x % WARP;
+  const int64_t row0 = (t - world * tiles) * TILE_C;
+  const Layout L = tile_layout(p, s, RESIDENT ? RES_ALL : G.mask);
+  const CellPtrs cp = stage_tile<RESIDENT>(
+      smem, L, G.mask, g, world * G.pstride + row0, p, s, warp, lane);
+  const Scratch w = cell_scratch(smem, warp, p, s);
+
+  const int64_t cell = world * G.c + row0 + warp;  // X row
+  const float* X = G.X + cell * s;
+  float* out = G.out + cell * s;
+  for (int j = lane; j < s; j += WARP) w.x0[j] = X[j];
+  __syncwarp();
+  for (int pass = 0; pass < 3; ++pass)
+    trim_pass(cp, w, lane, p, s, trim_factor(pass));
+  for (int j = lane; j < s; j += WARP) out[j] = w.x0[j];
+}
+
+template <bool RESIDENT>
+cudaError_t allow_grouped_smem(size_t bytes) {
+  return allow_kernel_smem<integrate_grouped_kernel<RESIDENT>>(bytes);
+}
+
+// Launch the groups `idx[0..n)` of one route, MAX_GROUPS at a time;
+// adds the launches to *launched.  Dynamic shared memory is the largest
+// group's layout: a smaller group's CTAs pay its occupancy.
+template <bool RESIDENT>
+cudaError_t launch_route(const Group* groups, const int* B, const int* idx,
+                         int n, cudaStream_t st, int* launched) {
+  for (int lo = 0; lo < n; lo += MAX_GROUPS) {
+    GroupTable table;
+    table.n = n - lo < MAX_GROUPS ? n - lo : MAX_GROUPS;
+    int64_t tiles = 0;
+    size_t smem = 0;
+    for (int i = 0; i < table.n; ++i) {
+      const int k = idx[lo + i];
+      table.g[i] = groups[k];
+      table.g[i].first_tile = tiles;
+      tiles += (int64_t)B[k] * (groups[k].c / TILE_C);
+      const size_t b = tile_layout(groups[k].p, groups[k].s,
+                                   RESIDENT ? RES_ALL : groups[k].mask).bytes;
+      if (b > smem) smem = b;
+    }
+    if (tiles > 2147483647LL) return cudaErrorInvalidValue;  // grid x limit
+    cudaError_t err = allow_grouped_smem<RESIDENT>(smem);
+    if (err != cudaSuccess) return err;
+    integrate_grouped_kernel<RESIDENT><<<(unsigned)tiles, THREADS, smem, st>>>(
+        table);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    ++*launched;
+  }
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -165,6 +275,73 @@ int ms_integrate_signals(const float* X, const float* Ke, const float* Kmf,
         X, Ke, Kmf, Kmb, Kmr, Vmax, N, Nf, Nb, A, out, c, p, s,
         (int64_t)pstride, mask);
   return (int)cudaGetLastError();
+}
+
+// The grouped launch: n groups, group k with ptrs[11k .. 11k+11) = X, Ke,
+// Kmf, Kmb, Kmr, Vmax, N, Nf, Nb, A, out (as ms_integrate_signals takes
+// them) and dims[5k .. 5k+5) = B, c, p, s, mask, pstrides[k] its world
+// stride in parameter rows.  Each group runs exactly what its own
+// ms_integrate_signals call runs.  The resident groups (mask RES_ALL) go
+// into one launch and the others into another, MAX_GROUPS per launch;
+// *launched gets the number of launches.  Groups with no rows or no
+// worlds launch nothing.  Returns cudaGetLastError() of the last launch.
+int ms_integrate_signals_grouped(int n, const void* const* ptrs,
+                                 const int* dims, const long long* pstrides,
+                                 int* launched, void* stream) {
+  *launched = 0;
+  if (n < 0) return (int)cudaErrorInvalidValue;
+  std::vector<Group> groups(n > 0 ? n : 1);
+  std::vector<int> B(n > 0 ? n : 1), resident, other;
+  for (int k = 0; k < n; ++k) {
+    const void* const* q = ptrs + 11 * (size_t)k;
+    const int* d = dims + 5 * (size_t)k;
+    Group& G = groups[k];
+    G.X = (const float*)q[0];
+    G.Ke = (const float*)q[1];
+    G.Kmf = (const float*)q[2];
+    G.Kmb = (const float*)q[3];
+    G.Kmr = (const float*)q[4];
+    G.Vmax = (const float*)q[5];
+    G.N = (const int16_t*)q[6];
+    G.Nf = (const int16_t*)q[7];
+    G.Nb = (const int16_t*)q[8];
+    G.A = (const int16_t*)q[9];
+    G.out = (float*)q[10];
+    B[k] = d[0];
+    G.c = d[1];
+    G.p = d[2];
+    G.s = d[3];
+    G.mask = d[4];
+    G.pstride = (int64_t)pstrides[k];
+    G.first_tile = 0;
+    if (G.mask < 0 || G.mask > RES_ALL || B[k] < 0 || G.c < 0 ||
+        G.c % TILE_C != 0)
+      return (int)cudaErrorInvalidValue;
+    if (B[k] == 0 || G.c == 0) continue;
+    (G.mask == RES_ALL ? resident : other).push_back(k);
+  }
+  const cudaStream_t st = (cudaStream_t)stream;
+  cudaError_t err = launch_route<true>(groups.data(), B.data(),
+                                       resident.data(), (int)resident.size(),
+                                       st, launched);
+  if (err != cudaSuccess) return (int)err;
+  err = launch_route<false>(groups.data(), B.data(), other.data(),
+                            (int)other.size(), st, launched);
+  return (int)err;
+}
+
+int ms_max_groups() { return MAX_GROUPS; }
+
+// CTAs of the grouped kernel that one SM holds with `smem` bytes of
+// dynamic shared memory, on the resident route or the other.
+int ms_grouped_ctas_per_sm(int resident, size_t smem, int* ctas) {
+  cudaError_t err =
+      resident ? allow_grouped_smem<true>(smem) : allow_grouped_smem<false>(smem);
+  if (err != cudaSuccess) return (int)err;
+  return resident ? (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                        ctas, integrate_grouped_kernel<true>, THREADS, smem)
+                  : (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                        ctas, integrate_grouped_kernel<false>, THREADS, smem);
 }
 
 const char* ms_error_string(int err) {

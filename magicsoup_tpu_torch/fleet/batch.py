@@ -18,15 +18,34 @@ every world and selects, with the same values.
 
 Inactive slots hold all-zero state, parameters and constants: an exact
 no-op through every phase (no live row, no spawn, zero diffusion kernels).
+
+Cross-rung fusion (:func:`fused_step_program`) steps several rung groups
+as one dispatch: at each simulated step every rung runs its pre-activity
+phases at its native shapes, then ONE grouped integrator launch serves
+all of them (:func:`magicsoup_tpu_torch.ops.backends.integrate_grouped`),
+then every rung runs its post-activity phases.  No state is padded, so
+each world's arithmetic and its threefry draws are those of its own
+group step; only the records are padded to the fleet's envelope and
+concatenated into one fetch buffer.
 """
 import torch
+import torch.nn.functional as F
 
+from magicsoup_tpu_torch.ops import backends as _backends
 from magicsoup_tpu_torch.ops.integrate import CellParams
-from magicsoup_tpu_torch.stepper import DeviceState, StepConsts, megastep
+from magicsoup_tpu_torch.stepper import (
+    DeviceState,
+    StepConsts,
+    det_scope,
+    megastep,
+    step_post_activity,
+    step_pre_activity,
+)
 
 __all__ = [
     "extract_world",
     "fleet_step_program",
+    "fused_step_program",
     "insert_world",
     "lane_consts",
     "stack_worlds",
@@ -85,6 +104,65 @@ def fleet_step_program(
         integrator=integrator,
         compact=compact,
     )
+
+
+def fused_step_program(
+    states: tuple,
+    params: tuple,
+    rest: tuple,
+    *,
+    statics: tuple,
+    k_env: int,
+    rec_env: int,
+) -> tuple[tuple, tuple, torch.Tensor]:
+    """One fused megastep of several rung groups, the counterpart of the
+    JAX package's one fused program.
+
+    ``states`` and ``params`` hold each rung's stacked state and
+    parameters, ``rest`` each rung's ``(consts, inputs, compact)`` and
+    ``statics`` its ``(det, max_div, n_rounds, k, integrator)``.
+    Simulated step i runs every rung with ``k_r > i`` through
+    :func:`~magicsoup_tpu_torch.stepper.step_pre_activity`, then one
+    :func:`~magicsoup_tpu_torch.ops.backends.integrate_grouped` call over
+    their live-row prefixes (one grouped kernel launch for the ``cuda``
+    rungs), then :func:`~magicsoup_tpu_torch.stepper.step_post_activity`;
+    each rung's ``compact`` worlds fold at its own last step, and its
+    spawns and pushes ride its first.  Each rung's ``(B_r, k_r, L_r)``
+    records are zero-padded to ``(k_env, rec_env)`` and concatenated on
+    the world axis.  Returns the rungs' new states and parameters and the
+    ``(sum B_r, k_env, rec_env)`` record buffer."""
+    states, params = list(states), list(params)
+    outs: list[list] = [[] for _ in states]
+    for i in range(max(st[3] for st in statics)):
+        active = [r for r, st in enumerate(statics) if st[3] > i]
+        carries, X0s, pqs = {}, [], []
+        for r in active:
+            det, _, n_rounds, _, _ = statics[r]
+            consts, inputs, _ = rest[r]
+            with det_scope(det, states[r].cm.device):
+                carries[r], X0, pq = step_pre_activity(
+                    states[r], params[r], consts, inputs,
+                    first=i == 0, n_rounds=n_rounds, q=states[r].cm.shape[1],
+                )
+            X0s.append(X0)
+            pqs.append(pq)
+        with torch.profiler.record_function("ms:activity"):
+            X1s = _backends.integrate_grouped([statics[r][4] for r in active], X0s, pqs)
+        for r, X1 in zip(active, X1s):
+            det, max_div, n_rounds, k, _ = statics[r]
+            consts, inputs, compact = rest[r]
+            with det_scope(det, states[r].cm.device):
+                states[r], params[r], out = step_post_activity(
+                    carries[r], X1, params[r], consts, inputs,
+                    det=det, max_div=max_div, n_rounds=n_rounds,
+                    compact=compact if i == k - 1 else (),
+                )
+            outs[r].append(out)
+    records = [
+        F.pad(torch.stack(o, dim=1), (0, rec_env - o[0].shape[1], 0, k_env - len(o)))
+        for o in outs
+    ]
+    return tuple(states), tuple(params), torch.cat(records, dim=0)
 
 
 def stack_worlds(trees: list):

@@ -14,6 +14,11 @@ are stale — the truth is the group stack.  Every operation that touches
 them on the host (flush, consistency check, standalone pushes, token
 growth) first checks the lane out; the scheduler re-inserts checked-out
 lanes before the next group dispatch.
+
+With a :class:`~magicsoup_tpu_torch.fleet.warden.FleetWarden` bound to the
+scheduler, a sentinel or invariant trip is a world-level event: the lane
+reports it to the warden instead of running the solo policy, which could
+raise through the shared commit loop under the other worlds.
 """
 from magicsoup_tpu_torch.stepper import PipelinedStepper
 
@@ -28,6 +33,9 @@ class FleetLane(PipelinedStepper):
         self._fleet = None
         self._fleet_slot = None  # (group, slot index) while a member
         self._fleet_resident = False  # device truth lives in the stack
+        # fused-dispatch tags of the lane's last dispatch (fused_groups,
+        # envelope), carried by its guard rows
+        self._fused_tags: dict = {}
         super().__init__(world, **kwargs)
 
     def _checkout(self) -> None:
@@ -59,8 +67,27 @@ class FleetLane(PipelinedStepper):
         # tag guard telemetry rows with the lane's place in its group
         if self._fleet_slot is not None:
             group, slot = self._fleet_slot
-            return {"fleet_slot": slot, "fleet_size": len(group.slots)}
+            return {"fleet_slot": slot, "fleet_size": len(group.slots), **self._fused_tags}
         return {}
+
+    def _warden(self):
+        """The warden routing this lane's trips, or None."""
+        w = self._fleet._warden if self._fleet is not None else None
+        return w if w is not None and w.manages(self) else None
+
+    def _handle_sentinel(self, out) -> None:
+        w = self._warden()
+        if w is not None:
+            w.report(self, "sentinel", out)
+        else:
+            super()._handle_sentinel(out)
+
+    def _handle_invariant(self, out) -> None:
+        w = self._warden()
+        if w is not None:
+            w.report(self, "invariant", out)
+        else:
+            super()._handle_invariant(out)
 
     def step(self) -> None:
         if self._fleet is not None:

@@ -1,8 +1,8 @@
 """
 FleetScheduler: admit and retire worlds, pack same-rung worlds into
 groups, and step the fleet with ONE dispatch and ONE record fetch per
-group per megastep.  Counterpart of :mod:`magicsoup_tpu.fleet.scheduler`
-with ``fusion="rung"``.
+group per megastep, or per fused set of groups.  Counterpart of
+:mod:`magicsoup_tpu.fleet.scheduler`.
 
 Grouping
     Worlds are bucketed by capacity rung: every shape and setting the
@@ -29,12 +29,30 @@ Telemetry and guard
     dispatch probes the chaos ``dispatch`` site and retries through the
     first lane's ``dispatch_retries``, only while nothing is enqueued.
 
-Cross-rung fusion (``fusion="fleet"`` / ``"auto"``), the warden,
-persistence and sharding are not ported.
+Cross-rung fusion
+    ``fusion="fleet"`` steps every live group as ONE dispatch with ONE
+    record fetch; ``"auto"`` packs groups greedily, largest record
+    footprint first, while every member's padded records stay within
+    ``fusion_waste`` of the envelope.  A fused dispatch interleaves the
+    rungs' step bodies at their native shapes around one grouped
+    integrator launch per simulated step
+    (:func:`~magicsoup_tpu_torch.fleet.batch.fused_step_program`), pads
+    the records to the grow-only ``(k_env, rec_env)`` envelope and
+    concatenates them, so each world computes what its own group step
+    computes.  Every group of a set is densified before anything is
+    enqueued, so the chaos ``dispatch`` site and ``dispatch_retries``
+    keep their rule.  The census counts one dispatch carrying R groups
+    and one integrator dispatch per backend.
+
+The warden (:mod:`magicsoup_tpu_torch.fleet.warden`) binds itself as
+``_warden``: admissions and retirements are reported to it, and it runs
+its policy at the top of every ``step()``.  Sharding the world axis over
+devices is not ported (ROADMAP A9).
 """
 import threading
 import time
 from concurrent.futures import TimeoutError as _FuturesTimeout
+from typing import NamedTuple
 
 import numpy as np
 
@@ -42,6 +60,7 @@ from magicsoup_tpu_torch.analysis import runtime as _runtime
 from magicsoup_tpu_torch.fleet.batch import (
     extract_world,
     fleet_step_program,
+    fused_step_program,
     insert_world,
     lane_consts,
     stack_consts,
@@ -50,7 +69,12 @@ from magicsoup_tpu_torch.fleet.batch import (
 )
 from magicsoup_tpu_torch.fleet.lanes import FleetLane
 from magicsoup_tpu_torch.ops.integrate import CellParams
-from magicsoup_tpu_torch.stepper import DeviceState, dispatch_inputs
+from magicsoup_tpu_torch.stepper import (
+    DeviceState,
+    crop_fused_record,
+    dispatch_inputs,
+    record_length,
+)
 
 __all__ = ["FleetScheduler"]
 
@@ -109,6 +133,43 @@ class _SliceFetch:
         return self._shared.result(timeout=timeout)[self._slot]
 
 
+class _FusedSliceFetch:
+    """A lane's view of a cross-rung fused fetch: its native ``(k,
+    record)`` megastep record cropped out of its world-row of the
+    envelope-padded buffer (the replay never sees the pad)."""
+
+    __slots__ = ("_shared", "_row", "_k", "_length")
+
+    def __init__(self, shared: _SharedFetch, row: int, k: int, length: int):
+        self._shared = shared
+        self._row = row
+        self._k = k
+        self._length = length
+
+    def done(self) -> bool:
+        return self._shared.done()
+
+    def result(self, timeout=None):
+        return crop_fused_record(
+            self._shared.result(timeout=timeout)[self._row], self._k, self._length
+        )
+
+
+class _GroupInputs(NamedTuple):
+    """One group's device inputs, densified: the shared front half of the
+    per-rung and the fused dispatch."""
+
+    first: FleetLane  # the first member: settings, fetcher, retries
+    lane_plans: dict  # slot -> _DispatchPlan
+    B: int  # slot count
+    cap: int  # cell capacity (q of every member)
+    k: int  # megastep
+    length: int  # the rung's record length
+    statics: tuple  # (det, max_div, n_rounds, k, integrator)
+    inputs: object  # DispatchInputs
+    compact: tuple  # slots that compact at the last step
+
+
 def _rung_key(lane: FleetLane) -> tuple:
     """Everything the group step's shapes and settings depend on; token
     capacities are excluded (unified per rung, grow-only)."""
@@ -159,26 +220,43 @@ class FleetScheduler:
         block: Slot count of a group (rounded up to a power of two).
         grow: ``"pad"`` (default) opens a sibling group when a rung is
             full; ``"double"`` doubles the rung's one group.
-        fusion: ``"rung"`` (the only one ported): one dispatch per group.
+        fusion: ``"rung"`` (default): one dispatch per group; ``"fleet"``:
+            one dispatch and one fetch for every live group; ``"auto"``:
+            fused sets whose members' padded records stay within
+            ``fusion_waste``, the rest per group.
+        fusion_waste: For ``"auto"``, the largest share of a member's
+            fetched record envelope that may be padding
+            (``1 - (k L) / (k_env rec_env)``), in [0, 1).
     """
 
-    def __init__(self, *, block: int = 4, grow: str = "pad", fusion: str = "rung"):
+    def __init__(
+        self,
+        *,
+        block: int = 4,
+        grow: str = "pad",
+        fusion: str = "rung",
+        fusion_waste: float = 0.5,
+    ):
         if block < 1:
             raise ValueError("block must be >= 1")
         if grow not in ("pad", "double"):
             raise ValueError('grow must be "pad" or "double"')
-        if fusion != "rung":
-            raise ValueError(
-                f'fusion="{fusion}": cross-rung fusion is not ported yet;'
-                ' use fusion="rung"'
-            )
+        if fusion not in ("rung", "fleet", "auto"):
+            raise ValueError('fusion must be "rung", "fleet" or "auto"')
+        if not 0.0 <= float(fusion_waste) < 1.0:
+            raise ValueError("fusion_waste must be in [0, 1)")
         self.fusion = fusion
+        self.fusion_waste = float(fusion_waste)
         self.block = 1 << (int(block) - 1).bit_length()
         self.grow = grow
         self.lanes: list[FleetLane] = []
         self._groups: dict[tuple, list[_FleetGroup]] = {}
         # rung key -> grow-only (max_proteins, max_doms)
         self._rung_caps: dict[tuple, tuple[int, int]] = {}
+        # the grow-only record envelope of fused fetch buffers
+        self._env_k = 0
+        self._env_rec = 0
+        self._warden = None  # bound by fleet.warden.FleetWarden
 
     # ------------------------------------------------------------ #
     # membership                                                   #
@@ -189,7 +267,11 @@ class FleetScheduler:
         placement into a group happens at the next ``step()``."""
         lane = FleetLane(world, **stepper_kwargs)
         lane._fleet = self
+        # the warden readmits a healed world with the same kwargs
+        lane._admit_kwargs = dict(stepper_kwargs)
         self.lanes.append(lane)
+        if self._warden is not None:
+            self._warden._on_admit(lane)
         return lane
 
     def retire(self, lane: FleetLane) -> FleetLane:
@@ -203,6 +285,8 @@ class FleetScheduler:
             self._vacate(lane)
         self.lanes.remove(lane)
         lane._fleet = None
+        if self._warden is not None:
+            self._warden._on_retire(lane)
         return lane
 
     def readmit(self, lane: FleetLane) -> FleetLane:
@@ -214,6 +298,8 @@ class FleetScheduler:
             raise ValueError("lane is already managed by a scheduler")
         lane._fleet = self
         self.lanes.append(lane)
+        if self._warden is not None:
+            self._warden._on_admit(lane)
         return lane
 
     def _vacate(self, lane: FleetLane) -> None:
@@ -236,13 +322,65 @@ class FleetScheduler:
 
     def step(self) -> None:
         """One fleet megastep: every world advances ``megastep`` steps,
-        with one dispatch and one fetch per group."""
+        with one dispatch and one fetch per group, or per fused set of
+        groups (one for the whole fleet under ``fusion="fleet"``)."""
+        if self._warden is not None:
+            # evictions, heals and cadence saves settle membership before
+            # any plan is prepared
+            self._warden.before_step()
         plans = {id(lane): lane._prepare_dispatch() for lane in list(self.lanes)}
         self._place()
-        for siblings in list(self._groups.values()):
-            for group in list(siblings):
-                if group.members():
-                    self._dispatch_group(group, plans)
+        live = [
+            group
+            for siblings in list(self._groups.values())
+            for group in list(siblings)
+            if group.members()
+        ]
+        for fused_set in self._plan_fusion(live):
+            if len(fused_set) == 1:
+                self._dispatch_group(fused_set[0], plans)
+            else:
+                self._dispatch_fused(fused_set, plans)
+
+    def _plan_fusion(self, groups: list) -> list[list]:
+        """Partition the live groups into dispatch sets: singletons under
+        ``"rung"``, one set under ``"fleet"``; under ``"auto"`` a greedy
+        packing, largest record footprint (k L) first, that admits a group
+        into a set only while every member's footprint is at least
+        ``1 - fusion_waste`` of the grow-only envelope the merged set
+        would fetch under."""
+        if self.fusion == "rung" or len(groups) <= 1:
+            return [[g] for g in groups]
+        if self.fusion == "fleet":
+            return [list(groups)]
+        geo = {}
+        for g in groups:
+            _, first = g.members()[0]
+            geo[id(g)] = (
+                first.megastep,
+                record_length(first._cap, first.max_divisions, first.spawn_block),
+            )
+        order = sorted(
+            range(len(groups)),
+            key=lambda i: (-geo[id(groups[i])][0] * geo[id(groups[i])][1], i),
+        )
+        sets: list[list] = []
+        for i in order:
+            g = groups[i]
+            for s in sets:
+                cand = s + [g]
+                k_env = max(self._env_k, max(geo[id(x)][0] for x in cand))
+                rec_env = max(self._env_rec, max(geo[id(x)][1] for x in cand))
+                envelope = k_env * rec_env
+                if all(
+                    geo[id(x)][0] * geo[id(x)][1] >= (1.0 - self.fusion_waste) * envelope
+                    for x in cand
+                ):
+                    s.append(g)
+                    break
+            else:
+                sets.append([g])
+        return sets
 
     def drain(self) -> None:
         """Block until every lane's dispatched steps are replayed."""
@@ -371,7 +509,8 @@ class FleetScheduler:
     # group dispatch                                               #
     # ------------------------------------------------------------ #
 
-    def _dispatch_group(self, group: _FleetGroup, plans: dict) -> None:
+    def _prepare_group(self, group: _FleetGroup, plans: dict) -> _GroupInputs:
+        """Stack one group and densify its members' planned batches."""
         self._ensure_stacked(group)
         members = group.members()
         _, first = members[0]
@@ -387,8 +526,29 @@ class FleetScheduler:
             device=first.world.device,
             budget_cache=group.budget_cache,
         )
-        compact = tuple(slot for slot, plan in lane_plans.items() if plan.compact)
-        integrator = str(first.world.integrator)
+        cap = group.fstate.cm.shape[1]
+        return _GroupInputs(
+            first=first,
+            lane_plans=lane_plans,
+            B=len(group.slots),
+            cap=cap,
+            k=first.megastep,
+            length=record_length(cap, first.max_divisions, first.spawn_block),
+            statics=(
+                bool(first.world.deterministic),
+                first.max_divisions,
+                first.n_rounds,
+                first.megastep,
+                str(first.world.integrator),
+            ),
+            inputs=inputs,
+            compact=tuple(slot for slot, plan in lane_plans.items() if plan.compact),
+        )
+
+    def _dispatch_group(self, group: _FleetGroup, plans: dict) -> None:
+        gi = self._prepare_group(group, plans)
+        first = gi.first
+        det, max_div, n_rounds, k, integrator = gi.statics
         t_dispatch0 = time.perf_counter()
         # the chaos dispatch site fires before anything is enqueued, so a
         # retried group dispatch sends the same inputs
@@ -397,13 +557,13 @@ class FleetScheduler:
                 group.fstate,
                 group.fparams,
                 group.consts,
-                inputs,
-                det=bool(first.world.deterministic),
-                max_div=first.max_divisions,
-                n_rounds=first.n_rounds,
-                k=first.megastep,
+                gi.inputs,
+                det=det,
+                max_div=max_div,
+                n_rounds=n_rounds,
+                k=k,
                 integrator=integrator,
-                compact=compact,
+                compact=gi.compact,
             ),
             lane_faults=False,
         )
@@ -413,20 +573,78 @@ class FleetScheduler:
         _runtime.note_integrator_dispatch(integrator)
         # one census entry for the physical dispatch; every member's
         # recorder gets the whole span (the group step ran for each)
+        members = group.members()
         ready = first._device_ready(t_dispatched, [lane for _, lane in members])
-        B = len(group.slots)
         shared = _SharedFetch(
             first._fetch(fouts, ready),
             timeout=first._fetch_timeout,
-            context={"B": B, "k": first.megastep, "slots": [slot for slot, _ in members]},
+            context={"B": gi.B, "k": k, "slots": [slot for slot, _ in members]},
         )
-        cap = group.fstate.cm.shape[1]
         for slot, lane in members:
+            lane._fused_tags = {}
             lane._commit_dispatch(
-                lane_plans[slot],
+                gi.lane_plans[slot],
                 _SliceFetch(shared, slot),
-                q=cap,
+                q=gi.cap,
                 t_dispatch0=t_dispatch0,
                 t_dispatched=t_dispatched,
-                extra_row={"fleet_slot": slot, "fleet_size": B},
+                extra_row={"fleet_slot": slot, "fleet_size": gi.B},
             )
+
+    def _dispatch_fused(self, fused_set: list, plans: dict) -> None:
+        """ONE dispatch and ONE record fetch for a fused set of groups:
+        every group is stacked and densified first, then
+        :func:`~magicsoup_tpu_torch.fleet.batch.fused_step_program` steps
+        them with one grouped integrator launch per simulated step, and
+        each lane crops its native record out of its row of the
+        ``(sum B_r, k_env, rec_env)`` buffer."""
+        prepped = [self._prepare_group(group, plans) for group in fused_set]
+        # grow-only envelope: membership churn never shrinks the buffer
+        self._env_k = max(self._env_k, max(p.k for p in prepped))
+        self._env_rec = max(self._env_rec, max(p.length for p in prepped))
+        k_env, rec_env = self._env_k, self._env_rec
+        statics = tuple(p.statics for p in prepped)
+        first = prepped[0].first
+        t_dispatch0 = time.perf_counter()
+        new_states, new_params, fouts = first._dispatch_with_retry(
+            lambda: fused_step_program(
+                tuple(g.fstate for g in fused_set),
+                tuple(g.fparams for g in fused_set),
+                tuple((g.consts, p.inputs, p.compact) for g, p in zip(fused_set, prepped)),
+                statics=statics,
+                k_env=k_env,
+                rec_env=rec_env,
+            ),
+            lane_faults=False,
+        )
+        t_dispatched = time.perf_counter()
+        for group, fs, fp in zip(fused_set, new_states, new_params):
+            group.fstate, group.fparams = fs, fp
+        _runtime.note_dispatch(dispatches=1, fused_groups=len(fused_set))
+        # one count per backend the fused dispatch ran
+        for name in sorted({s[4] for s in statics}):
+            _runtime.note_integrator_dispatch(name)
+        riders = [lane for group in fused_set for _, lane in group.members()]
+        shared = _SharedFetch(
+            first._fetch(fouts, first._device_ready(t_dispatched, riders)),
+            timeout=first._fetch_timeout,
+            context={
+                "fused_groups": len(fused_set),
+                "worlds": sum(p.B for p in prepped),
+                "envelope": [k_env, rec_env],
+            },
+        )
+        tags = {"fused_groups": len(fused_set), "envelope": [k_env, rec_env]}
+        row_base = 0
+        for group, p in zip(fused_set, prepped):
+            for slot, lane in group.members():
+                lane._fused_tags = dict(tags)
+                lane._commit_dispatch(
+                    p.lane_plans[slot],
+                    _FusedSliceFetch(shared, row_base + slot, p.k, p.length),
+                    q=p.cap,
+                    t_dispatch0=t_dispatch0,
+                    t_dispatched=t_dispatched,
+                    extra_row={"fleet_slot": slot, "fleet_size": p.B, **tags},
+                )
+            row_base += p.B

@@ -75,11 +75,15 @@ def inject_nan(target, *, row: int = 0, mol: int = 0) -> None:
     """Poison one concentration with NaN.
 
     ``target`` is a ``PipelinedStepper`` (poisons its device state, so
-    the next step's sentinel lanes see it) or a ``World`` (poisons the
-    cell-molecule tensor the classic step integrates).
+    the next step's sentinel lanes see it; a fleet lane is checked out of
+    its group stack first, where its device truth lives, and goes back
+    in at the next fleet step) or a ``World`` (poisons the cell-molecule
+    tensor the classic step integrates).
     """
     if hasattr(target, "_state"):
         st = target
+        if getattr(st, "_fleet_resident", False):
+            st._checkout()
         st._state = st._state._replace(cm=_with(st._state.cm, (0, row, mol), float("nan")))
     else:
         w = target

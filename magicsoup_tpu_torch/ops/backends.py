@@ -14,7 +14,8 @@ backends:
   (:mod:`magicsoup_tpu_torch.ops.cuda_integrate`), the counterpart of
   ``pallas``: fast mode only, early stop per tile of 8 cells, one launch
   for one world or for a batch of worlds.  On CPU tensors it runs its
-  plain version at the same tile.
+  plain version at the same tile.  :func:`integrate_grouped` runs several
+  groups of worlds (a fused fleet step's rungs) in one grouped launch.
 
 :func:`resolve` keeps the JAX package's precedence: an explicit
 ``integrator`` argument, then the ``MAGICSOUP_TPU_TORCH_INTEGRATOR`` env
@@ -25,8 +26,12 @@ deterministic; else ``cuda`` on a CUDA device, ``torch-fast`` on the CPU).
 import os
 from typing import NamedTuple
 
-from magicsoup_tpu_torch.ops.cuda_integrate import integrate_signals_cuda
-from magicsoup_tpu_torch.ops.integrate import CellParams, integrate_grouped
+from magicsoup_tpu_torch.ops.cuda_integrate import (
+    integrate_signals_cuda,
+    integrate_signals_cuda_grouped,
+)
+from magicsoup_tpu_torch.ops.integrate import CellParams
+from magicsoup_tpu_torch.ops.integrate import integrate_grouped as _integrate_body
 
 #: env var naming a backend explicitly (below the ``integrator`` argument)
 ENV_VAR = "MAGICSOUP_TPU_TORCH_INTEGRATOR"
@@ -109,4 +114,27 @@ def integrate(name: str, X, params):
         return integrate_signals_cuda(X, params)
     if X.shape[1] == 0:
         return X.clone()
-    return integrate_grouped(X, params, det=backend.name == "torch-det")
+    return _integrate_body(X, params, det=backend.name == "torch-det")
+
+
+def integrate_grouped(names, Xs, params_list) -> list:
+    """One integrator step for several groups of worlds (a fused fleet
+    step's rungs), group g through backend ``names[g]`` on ``Xs[g]``
+    (B_g, c_g, s_g) and ``params_list[g]``.  The ``cuda`` groups share
+    one grouped kernel launch
+    (:func:`~magicsoup_tpu_torch.ops.cuda_integrate.integrate_signals_cuda_grouped`);
+    the ``torch-fast`` and ``torch-det`` groups run their own bodies one
+    group after another, so each group's bits are those of
+    :func:`integrate` on it alone.  Returns the outputs in group order."""
+    outs: list = [None] * len(Xs)
+    fused = [g for g, name in enumerate(names) if get_backend(name).name == "cuda"]
+    for g, name in enumerate(names):
+        if g not in fused:
+            outs[g] = integrate(name, Xs[g], params_list[g])
+    if fused:
+        got = integrate_signals_cuda_grouped(
+            [Xs[g] for g in fused], [params_list[g] for g in fused]
+        )
+        for g, out in zip(fused, got):
+            outs[g] = out
+    return outs

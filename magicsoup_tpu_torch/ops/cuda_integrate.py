@@ -22,6 +22,14 @@ tensors it runs the plain version, :func:`integrate_signals_tiled`: the
 shared body of :mod:`magicsoup_tpu_torch.ops.integrate` with a leading
 tile axis.
 
+:func:`integrate_signals_cuda_grouped` runs several such groups of worlds
+(a fused fleet step's rungs, each with its own rows, proteins, signals and
+world stride) in one launch of the grouped kernel, whose grid is flattened
+over every tile of every group; each world computes exactly what its
+group's own launch computes.  It counts in :data:`grouped_launches`, one
+per launch: one for the groups on the resident route and one for the
+others, each of at most :data:`MAX_GROUPS` groups.
+
 The kernel stages each tile's parameters in shared memory for the whole
 step.  :func:`plan` chooses, per (p, s), which parameter groups are
 resident and how many bytes a CTA takes; the C side computes the same
@@ -57,6 +65,13 @@ TILE_C = 8
 
 #: kernel launches so far (a plain count; set it to 0 to start a window)
 launches = 0
+
+#: launches of the grouped kernel so far (:func:`integrate_signals_cuda_grouped`;
+#: a plain count, apart from :data:`launches`)
+grouped_launches = 0
+
+#: groups one grouped launch takes (``MAX_GROUPS`` in ``csrc/integrate.cu``)
+MAX_GROUPS = 16
 
 SRC = Path(__file__).resolve().parents[1] / "csrc" / "integrate.cu"
 NVCC_FLAGS = [
@@ -203,11 +218,18 @@ def _lib():
             lib.ms_integrate_signals.restype = ci
             lib.ms_integrate_smem_bytes.argtypes = [ci, ci, ci]
             lib.ms_integrate_smem_bytes.restype = ctypes.c_size_t
+            lib.ms_integrate_signals_grouped.argtypes = [
+                ci, vp, vp, vp, ctypes.POINTER(ci), vp
+            ]
+            lib.ms_integrate_signals_grouped.restype = ci
+            lib.ms_max_groups.restype = ci
+            lib.ms_grouped_ctas_per_sm.argtypes = [ci, ctypes.c_size_t, ctypes.POINTER(ci)]
+            lib.ms_grouped_ctas_per_sm.restype = ci
             lib.ms_tile_c.restype = ci
             lib.ms_error_string.argtypes = [ci]
             lib.ms_error_string.restype = ctypes.c_char_p
-            if lib.ms_tile_c() != TILE_C:
-                raise RuntimeError("kernel and wrapper disagree on TILE_C")
+            if lib.ms_tile_c() != TILE_C or lib.ms_max_groups() != MAX_GROUPS:
+                raise RuntimeError("kernel and wrapper disagree on TILE_C or MAX_GROUPS")
             _LIB = lib
     return _LIB
 
@@ -350,3 +372,107 @@ def integrate_signals_cuda(
     out = _launch(X, params, pstride)
     launches += 1
     return out
+
+
+class GroupedArgs(NamedTuple):
+    """The C arrays of one grouped launch (``ms_integrate_signals_grouped``):
+    11 pointers per group, ``(B, c, p, s, mask)`` per group and the
+    groups' world strides.  The caller keeps the tensors alive."""
+
+    n: int
+    ptrs: object
+    dims: object
+    pstrides: object
+
+
+def grouped_args(Xs, params_list, outs, masks, pstrides) -> GroupedArgs:
+    """Pack the groups' pointers and shapes for the grouped entry."""
+    n = len(Xs)
+    ptrs = (ctypes.c_void_p * (11 * max(n, 1)))()
+    dims = (ctypes.c_int * (5 * max(n, 1)))()
+    strides = (ctypes.c_longlong * max(n, 1))()
+    for k, (X, params, out, mask, pstride) in enumerate(
+        zip(Xs, params_list, outs, masks, pstrides)
+    ):
+        B, c, s = X.shape
+        tensors = (X, *params, out)
+        for i, t in enumerate(tensors):
+            ptrs[11 * k + i] = t.data_ptr()
+        dims[5 * k : 5 * k + 5] = [B, c, params.Ke.shape[-1], s, mask]
+        strides[k] = pstride
+    return GroupedArgs(n, ptrs, dims, strides)
+
+
+def grouped_occupancy(Xs, params_list) -> dict:
+    """Per route of a grouped launch over these groups (``"resident"``,
+    ``"other"``): the dynamic shared memory of its CTAs (the largest
+    group's layout) and the CTAs one SM holds at it, from the CUDA
+    occupancy calculator on the current card."""
+    lib = _lib()
+    dev = Xs[0].device
+    limit = smem_limit(dev.index)
+    need: dict[str, int] = {}
+    for X, params in zip(Xs, params_list):
+        how = launch_plan(params.Ke.shape[-1], X.shape[2], limit)
+        route = "resident" if how.route == "resident" else "other"
+        need[route] = max(need.get(route, 0), how.smem_bytes)
+    out = {}
+    with torch.cuda.device(dev):
+        for route, smem in need.items():
+            ctas = ctypes.c_int(0)
+            err = lib.ms_grouped_ctas_per_sm(int(route == "resident"), smem, ctypes.byref(ctas))
+            if err != 0:
+                raise RuntimeError(f"occupancy query failed: {lib.ms_error_string(err).decode()}")
+            out[route] = {"smem_bytes": smem, "ctas_per_sm": ctas.value}
+    return out
+
+
+def integrate_signals_cuda_grouped(Xs, params_list) -> list:
+    """
+    One integrator step for several groups of worlds at once: group g is
+    ``Xs[g]`` (B_g, c_g, s_g) with ``params_list[g]`` (B_g, c_g, ...), each
+    as :func:`integrate_signals_cuda` takes it (possibly the row prefixes
+    of a stack), with its own worlds, rows, proteins and signals.  Returns
+    the outputs in group order; world w of group g equals
+    ``integrate_signals_cuda(Xs[g], params_list[g])[w]`` bit for bit.
+
+    On CUDA tensors: one launch of the grouped kernel for the groups of
+    the launch plan's resident route and one for the others, each of at
+    most :data:`MAX_GROUPS` groups, on the current stream without
+    synchronizing; each adds one to :data:`grouped_launches`.  On CPU
+    tensors: :func:`integrate_signals_tiled` per group.
+    """
+    global grouped_launches
+    if len(Xs) != len(params_list):
+        raise ValueError("one parameter set per group of signals")
+    if not Xs:
+        return []
+    dev = Xs[0].device
+    pstrides = []
+    for X, params in zip(Xs, params_list):
+        if X.ndim != 3:
+            raise ValueError(f"X must be (worlds, cells, signals), got {tuple(X.shape)}")
+        if X.device != dev:
+            raise ValueError(f"every group must be on one device: {X.device} and {dev}")
+        pstrides.append(_check(X, params))
+        _route(X, None)
+    if dev.type == "cpu":
+        return [integrate_signals_tiled(X, params, TILE_C) for X, params in zip(Xs, params_list)]
+    lib = _lib()
+    limit = smem_limit(dev.index)
+    masks = [launch_plan(params.Ke.shape[-1], X.shape[2], limit).mask
+             for X, params in zip(Xs, params_list)]
+    outs = [torch.empty_like(X) for X in Xs]
+    args = grouped_args(Xs, params_list, outs, masks, pstrides)
+    n_launched = ctypes.c_int(0)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.ms_integrate_signals_grouped(
+            args.n, args.ptrs, args.dims, args.pstrides, ctypes.byref(n_launched), stream
+        )
+    grouped_launches += n_launched.value
+    if err != 0:
+        raise RuntimeError(
+            f"grouped integrator launch failed: {lib.ms_error_string(err).decode()}"
+        )
+    return outs

@@ -150,6 +150,25 @@ def record_length(cap: int, max_divisions: int, spawn_block: int) -> int:
     )
 
 
+def crop_fused_record(records, k: int, length: int) -> np.ndarray:
+    """A lane's native ``(k, record)`` view out of its world-row of a
+    cross-rung fused fetch buffer.  The fused dispatch pads every rung's
+    ``(B_r, k_r, L_r)`` records to the fleet's grow-only ``(k_env,
+    rec_env)`` envelope so the whole fleet comes back in one fetch; the
+    envelope lives only in that buffer (``_unpack_outputs`` still holds
+    each record to the lane's own :func:`record_length`).  ``records`` is
+    one world's ``(k_env, rec_env)`` slice; raises ``ValueError`` when the
+    native record does not fit it."""
+    arr = np.asarray(records)
+    if arr.shape[0] < k or arr.shape[1] < length:
+        raise ValueError(
+            f"fused record envelope {arr.shape} cannot hold a native "
+            f"({k}, {length}) megastep record: the grow-only envelope "
+            "contract was violated"
+        )
+    return arr[:k, :length]
+
+
 class DeviceState(NamedTuple):
     """All device-resident simulation state, with a leading world axis."""
 
@@ -365,35 +384,40 @@ class _Phases:
             self._open.__enter__()
 
 
-def _step_body(
+class StepCarry(NamedTuple):
+    """What one step's pre-activity phases hand the rest of the step: the
+    state after push and spawn and the values the later phases read."""
+
+    state: DeviceState  # after push and spawn, its key advanced
+    k_div: torch.Tensor  # (B, 2) the division placement's key
+    mol_onehot: torch.Tensor  # (B, mols) the selection molecule
+    spawn_ok: Any  # (B, spawn_block) bool, or None: no spawn this step
+    spawn_pos: Any  # (B, spawn_block, 2), or None
+    lin_q: torch.Tensor  # (B, q) flat pixels of the live-row prefix
+    ext: torch.Tensor  # (B, q, mols) their map values before the activity
+    q: int  # the live-row prefix
+
+
+def step_pre_activity(
     state: DeviceState,
     params: CellParams,
     consts: StepConsts,
     inputs: DispatchInputs,
     *,
     first: bool,
-    det: bool,
-    max_div: int,
     n_rounds: int,
     q: int,
-    integrator: str,
-    compact: tuple = (),
-) -> tuple[DeviceState, CellParams, torch.Tensor]:
-    """One fused workload step for B worlds (push -> spawn -> activity ->
-    select -> kill -> divide -> degrade/diffuse/permeate [-> compact]),
-    returning the new state and parameters and the ``(B, record)`` packed
-    output.  ``q`` bounds the live-row prefix the integrator reads and
-    the rows spawn and divide may allocate.  The parameter tensors are
-    written in place; every other state tensor is replaced.  ``compact``
-    lists the worlds whose rows fold at the end of this step."""
+) -> tuple[StepCarry, torch.Tensor, CellParams]:
+    """The phases of one step before the activity (push, spawn) for B
+    worlds; returns the carry, the integrator's signals ``X0`` (B, q, s)
+    and its parameters (the q-row prefixes of ``params``).  The parameter
+    tensors are written in place."""
     phase = _Phases()
     mm, cm, pos, occ, alive, n_rows, key = state
     B, cap, n_mols = cm.shape
     m = occ.shape[-1]
     dev = cm.device
     q = min(q, cap)
-    bidx = torch.arange(B, device=dev)
-    rows = torch.arange(cap, device=dev)
     keys = _prng.split(key, 3)
     key, k_spawn, k_div = keys[:, 0], keys[:, 1], keys[:, 2]
     mol_onehot = (
@@ -441,12 +465,56 @@ def _step_body(
     else:
         spawn_ok = spawn_pos = None
 
-    # ---- 1. enzymatic activity (live-row prefix only) ----
+    # ---- 1. enzymatic activity (live-row prefix only): its inputs ----
     phase("ms:activity")
     lin_q = pos[:, :q, 0] * m + pos[:, :q, 1]
     ext = _pixels(mm, lin_q)  # (B, q, mols)
     X0 = torch.cat([cm[:, :q], ext], dim=-1).contiguous()
-    X1 = _backends.integrate(integrator, X0, CellParams(*(t[:, :q] for t in params)))
+    phase(None)
+    carry = StepCarry(
+        state=DeviceState(mm=mm, cm=cm, pos=pos, occ=occ, alive=alive, n_rows=n_rows, key=key),
+        k_div=k_div,
+        mol_onehot=mol_onehot,
+        spawn_ok=spawn_ok,
+        spawn_pos=spawn_pos,
+        lin_q=lin_q,
+        ext=ext,
+        q=q,
+    )
+    return carry, X0, CellParams(*(t[:, :q] for t in params))
+
+
+def step_post_activity(
+    carry: StepCarry,
+    X1: torch.Tensor,
+    params: CellParams,
+    consts: StepConsts,
+    inputs: DispatchInputs,
+    *,
+    det: bool,
+    max_div: int,
+    n_rounds: int,
+    compact: tuple = (),
+) -> tuple[DeviceState, CellParams, torch.Tensor]:
+    """The phases of one step after the activity (select and kill,
+    divide, physics, metric and guard lanes, compaction of the worlds in
+    ``compact``, the packed record), given the integrator's output ``X1``
+    (B, q, s); returns the new state and parameters and the ``(B,
+    record)`` packed output.  The parameter tensors are written in
+    place."""
+    phase = _Phases()
+    mm, cm, pos, occ, alive, n_rows, key = carry.state
+    k_div, mol_onehot = carry.k_div, carry.mol_onehot
+    spawn_ok, spawn_pos = carry.spawn_ok, carry.spawn_pos
+    lin_q, ext, q = carry.lin_q, carry.ext, carry.q
+    B, cap, n_mols = cm.shape
+    m = occ.shape[-1]
+    dev = cm.device
+    bidx = torch.arange(B, device=dev)
+    rows = torch.arange(cap, device=dev)
+
+    # ---- 1. enzymatic activity: its outputs merged back ----
+    phase("ms:activity")
     alive_q = alive[:, :q, None]
     cm = torch.cat([torch.where(alive_q, X1[..., :n_mols], cm[:, :q]), cm[:, q:]], dim=1)
     mm = _add_pixels(
@@ -618,6 +686,47 @@ def _step_body(
     return new_state, params, out
 
 
+def _step_body(
+    state: DeviceState,
+    params: CellParams,
+    consts: StepConsts,
+    inputs: DispatchInputs,
+    *,
+    first: bool,
+    det: bool,
+    max_div: int,
+    n_rounds: int,
+    q: int,
+    integrator: str,
+    compact: tuple = (),
+) -> tuple[DeviceState, CellParams, torch.Tensor]:
+    """One fused workload step for B worlds (push -> spawn -> activity ->
+    select -> kill -> divide -> degrade/diffuse/permeate [-> compact]),
+    returning the new state and parameters and the ``(B, record)`` packed
+    output.  ``q`` bounds the live-row prefix the integrator reads and
+    the rows spawn and divide may allocate.  The parameter tensors are
+    written in place; every other state tensor is replaced.  ``compact``
+    lists the worlds whose rows fold at the end of this step.  It is
+    :func:`step_pre_activity`, one integrator call and
+    :func:`step_post_activity`; a fused fleet step interleaves the pieces
+    of several rungs around one grouped integrator launch."""
+    carry, X0, params_q = step_pre_activity(
+        state, params, consts, inputs, first=first, n_rounds=n_rounds, q=q
+    )
+    with torch.profiler.record_function("ms:activity"):
+        X1 = _backends.integrate(integrator, X0, params_q)
+    return step_post_activity(
+        carry, X1, params, consts, inputs,
+        det=det, max_div=max_div, n_rounds=n_rounds, compact=compact,
+    )
+
+
+def det_scope(det: bool, device):
+    """The scope of a det dispatch's work: subnormals flushed on the CPU,
+    as XLA flushes them (nothing for fast mode)."""
+    return _detmath.flush_denormal(device) if det else contextlib.nullcontext()
+
+
 def megastep(
     state: DeviceState,
     params: CellParams,
@@ -637,9 +746,8 @@ def megastep(
     parameter pushes ride step 0; ``compact`` applies to the last step
     only.  In deterministic mode on the CPU the whole dispatch flushes
     subnormals, as XLA does."""
-    ftz = _detmath.flush_denormal(state.cm.device) if det else contextlib.nullcontext()
     outs = []
-    with ftz:
+    with det_scope(det, state.cm.device):
         for i in range(k):
             state, params, out = _step_body(
                 state,

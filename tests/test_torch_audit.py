@@ -150,3 +150,18 @@ def test_audit_token_store_lanes():
 def test_empty_world_audits_clean():
     world = mt.World(chemistry=_chem(mt), map_size=16, seed=3, device="cpu")
     assert check.audit_world(world) == []
+
+
+def test_a_world_whose_cells_fill_its_capacity_audits_clean():
+    # an 8x8 map full of cells: no dead row at all; the JAX audit raises
+    # here (reshape of the empty dead-row tail), the port's audits it
+    world = mt.World(chemistry=_chem(mt), map_size=8, seed=3, device="cpu")
+    rng = random.Random(3)
+    world.spawn_cells([mt.random_genome(s=200, rng=rng) for _ in range(64)])
+    assert world.n_cells == world._capacity == 64
+    assert check.audit_world(world) == []
+    jworld = ms.World(chemistry=_chem(ms), map_size=8, seed=3)
+    jworld.spawn_cells([ms.random_genome(s=200, rng=random.Random(3)) for _ in range(64)])
+    assert jworld.n_cells == 64
+    with pytest.raises(ValueError, match="reshape"):
+        jcheck.audit_world(jworld)

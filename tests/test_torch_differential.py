@@ -10,6 +10,10 @@ on the CPU:
   ``tests/fast/test_check_properties.py`` holds the JAX paths;
 - a reference axis: the JAX package's full ``state_digest`` equal to the
   port's at every boundary, in deterministic mode, in one process;
+- the fused axis: ``fused2`` reproducing
+  ``differential_fused2_seed11.json``, ``fused2`` and ``fused_fleet``
+  equal to their solo paths (``k1``, ``k4``) at every boundary and to the
+  JAX harness's digests;
 - the paths that wait on other parts of the port raise, naming them.
 """
 import jax
@@ -67,6 +71,33 @@ def test_cuda_k1_reproduces_the_pallas_golden_file(monkeypatch):
         device="cpu",
     )
     assert got == rec["structural_digests"]
+
+
+def test_fused2_reproduces_its_golden_file(monkeypatch):
+    monkeypatch.setenv("MAGICSOUP_TPU_DETERMINISTIC", "1")
+    rec = _golden("differential_fused2_seed11.json")
+    assert rec["path"] == "fused2"
+    got = differential.run_path(
+        "fused2",
+        seed=rec["seed"],
+        map_size=rec["map_size"],
+        n_cells=rec["n_cells"],
+        digest_fn=differential.structural_digest,
+        device="cpu",
+    )
+    assert got == rec["structural_digests"]
+
+
+@pytest.mark.parametrize("fused_path,solo_path", [("fused2", "k1"), ("fused_fleet", "k4")])
+def test_fused_paths_equal_their_solo_paths_and_the_jax_harness(
+    fused_path, solo_path, monkeypatch
+):
+    monkeypatch.setenv("MAGICSOUP_TPU_DETERMINISTIC", "1")
+    fused = differential.run_path(fused_path, seed=11, n_cells=12, device="cpu")
+    solo = differential.run_path(solo_path, seed=11, n_cells=12, device="cpu")
+    for name, want, got in zip(differential.BOUNDARIES, solo, fused):
+        assert want == got, f"{fused_path} forked from {solo_path} at {name}"
+    assert fused == jdiff.run_path(fused_path, seed=11, n_cells=12)
 
 
 @pytest.mark.parametrize("path", ["classic", "k1", "k4", "fleet1", "token_k1"])

@@ -12,7 +12,8 @@ side's shared-memory bytes against the Python launch plan's.
 glibc's expf/logf round differently from the card's, so the outputs are
 held to the fast contract; bits are compared only between launches of
 the emulated kernel (every residency mask, each world against its own
-launch, rung 11 against the kernel).  The threefry kernel's work is
+launch, each group of a grouped launch against its own launch, rung 11
+against the kernel).  The threefry kernel's work is
 integer only, so it is held bit-equal to its plain version
 (``ops/prng.py``): both output modes, several keys, counts that are not
 a multiple of the block, and one element.  On the card chip_smoke.py
@@ -72,6 +73,8 @@ def libs(tmp_path_factory):
     integrate.ms_integrate_signals.restype = cint
     integrate.ms_integrate_smem_bytes.argtypes = [cint] * 3
     integrate.ms_integrate_smem_bytes.restype = size
+    integrate.ms_integrate_signals_grouped.argtypes = [cint, vp, vp, vp, ctypes.POINTER(cint), vp]
+    integrate.ms_integrate_signals_grouped.restype = cint
     bisect.ms_bisect_rung.argtypes = [cint] + [vp] * 11 + [cint] * 4 + [vp]
     bisect.ms_bisect_rung.restype = cint
     bisect.ms_bisect_smem_bytes.argtypes = [cint] * 4
@@ -154,6 +157,46 @@ def test_emulated_worlds_equal_their_own_launch(libs):
         solo = _run(libs[0], X[w : w + 1].contiguous(), CellParams(*(t[w : w + 1] for t in params)),
                     ci.ALL_RESIDENT)
         assert torch.equal(solo[0], out[w])
+
+
+def _run_grouped(lib, Xs, params_list, masks) -> tuple[list, int]:
+    outs = [torch.empty_like(X) for X in Xs]
+    args = ci.grouped_args(Xs, params_list, outs, masks,
+                           [ci._check(X, p) for X, p in zip(Xs, params_list)])
+    launched = ctypes.c_int(-1)
+    assert lib.ms_integrate_signals_grouped(
+        args.n, args.ptrs, args.dims, args.pstrides, ctypes.byref(launched), None) == 0
+    return outs, launched.value
+
+
+def test_emulated_grouped_launch_equals_each_groups_own_launch(libs):
+    # three groups of different (B, c, p, s): two on the resident route
+    # (one the 24-row prefix of a 40-row stack), one on a partial route
+    a = [_inputs(40, 8, 12, seed=w) for w in range(2)]
+    Xa = torch.cat([x[:, :24] for x, _ in a]).contiguous()
+    pa = CellParams(*(torch.cat(ts)[:, :24] for ts in zip(*(p for _, p in a))))
+    Xb, pb = _inputs(16, 32, 28, seed=5)
+    c = [_inputs(16, 5, 7, seed=6 + w) for w in range(2)]
+    Xc = torch.cat([x for x, _ in c])
+    pc = CellParams(*(torch.cat(ts) for ts in zip(*(p for _, p in c))))
+    groups = [(Xa, pa, ci.ALL_RESIDENT), (Xb, pb, ci.ALL_RESIDENT), (Xc, pc, 8 | 16)]
+    outs, launched = _run_grouped(libs[0], *zip(*groups))
+    assert launched == 2  # one launch per route
+    for (X, params, mask), out in zip(groups, outs):
+        own = _run(libs[0], X, params, mask)
+        assert torch.equal(out, own)
+        _assert_fast_contract(out, ci.integrate_signals_tiled(X, params, ci.TILE_C))
+        for w in range(X.shape[0]):
+            solo = _run(libs[0], X[w : w + 1].contiguous(),
+                        CellParams(*(t[w : w + 1] for t in params)), mask)
+            assert torch.equal(solo[0], out[w])
+    # more groups than one launch takes: ceil(17 / 16) launches
+    many = [_inputs(8, 4, 6, seed=20 + g) for g in range(ci.MAX_GROUPS + 1)]
+    outs, launched = _run_grouped(libs[0], [x for x, _ in many], [p for _, p in many],
+                                  [ci.ALL_RESIDENT] * len(many))
+    assert launched == 2
+    for (X, params), out in zip(many, outs):
+        assert torch.equal(out, _run(libs[0], X, params, ci.ALL_RESIDENT))
 
 
 def test_emulated_ladder_rungs_hold_their_plain_versions(libs):

@@ -317,6 +317,10 @@ def test_what_is_not_ported_raises():
     with pytest.raises(ValueError, match="mesh"):
         mt.PipelinedStepper(w)
     del w._mesh
+    # cross-rung fusion is ported: both modes are accepted, bad settings refused
     for fusion in ("fleet", "auto"):
-        with pytest.raises(ValueError, match="cross-rung fusion is not ported"):
-            mt.FleetScheduler(fusion=fusion)
+        assert mt.FleetScheduler(fusion=fusion).fusion == fusion
+    with pytest.raises(ValueError, match="fusion must be"):
+        mt.FleetScheduler(fusion="rungs")
+    with pytest.raises(ValueError, match="fusion_waste"):
+        mt.FleetScheduler(fusion="auto", fusion_waste=1.0)

@@ -25,6 +25,7 @@
 #define __launch_bounds__(...)
 #define __shared__
 #define __align__(n)
+#define __grid_constant__
 
 using std::fmaxf;
 using std::fminf;
@@ -51,6 +52,11 @@ inline cudaError_t cudaGetDevice(int* d) {
 template <class F>
 inline cudaError_t cudaFuncSetAttribute(F, int, int bytes) {
   return bytes > EMU_SMEM_LIMIT ? cudaErrorInvalidValue : cudaSuccess;
+}
+template <class F>
+inline cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, F, int, size_t) {
+  *n = 1;  // one block at a time here
+  return cudaSuccess;
 }
 inline const char* cudaGetErrorString(cudaError_t) { return "emulated CUDA error"; }
 
