@@ -228,11 +228,43 @@ Smoke run of the PyTorch/CUDA port on one CUDA card:
     from the trip to eviction and readmission, the heal's restore
     seconds; no sentinel trip but the poisoned world's and no invariant
     flag but ``dead_param_residue`` (ROADMAP C3, on which the warden acts
-    as on any trip).
+    as on any trip);
+24. serving (``magicsoup_tpu_torch.serve``): (a) ``FleetService(block=2,
+    device="cuda")`` over loopback HTTP with two tenants at the headline
+    shape (the Wood-Ljungdahl chemistry serialized into the spec, 128²,
+    10,000 cells of 500 bp, fast mode, seeds 42 and 43, phase 7's
+    selection at K = 1): 3 warm-up megasteps each, then one grant of 40
+    megasteps each, timed from the grants until ``GET /tenants/<id>``
+    shows both served (served world-steps/s), with exactly 1 dispatch, 1
+    record fetch and 1 K2 launch per rung-group step (counted where the
+    loop calls the scheduler); 20 single-megastep grants alternating
+    tenants (grant-to-served p50 and p99); ``GET /accounting`` rows that
+    sum to the megasteps served and conserve the process's fetch bytes
+    and device time since the service started; two ``/metrics`` scrapes,
+    every counter monotone, the tick and command-latency medians; after
+    ``GET .../digest`` and the stop (drain, final checkpoints, registry)
+    every world finite and >= 0, no flag but ``dead_param_residue`` (its
+    trips per tenant); then a ``fusion="fleet"`` service with the two
+    headline tenants and a chemistry-only 4,000-cell tenant on 64² (no
+    kill, division or spawn, K = 1), 10 manual ticks after 3 warm-up
+    ones: 1 dispatch, 1 fetch, 1 grouped launch and 0 K2 launches per
+    step, accounting conserved; peak memory above the earlier phases'.  (b) the det schedule of
+    ``performance/smoke.py --serve`` (t1 and t2 on 16², t3 on 8², 24
+    cells of 200 bp, K = 2) through ``python -m magicsoup_tpu_torch.serve``
+    children on the card: 3 fetches for 3 sequential single-megastep
+    grants, each tenant re-attached after its checkpoint's flush without
+    a rebuild (``attach_skipped``), under ``compile_budget`` 0 a cold spec refused with 429 and a
+    warm one admitted and served with 0 compiles, rows that sum, SIGTERM
+    exiting 0 with final checkpoints and a registry; a child killed with
+    SIGKILL after the first half and its restart finish the schedule
+    with digests bit-equal to the baseline's; the baseline's final
+    checkpoints restored onto the CPU give the same ``state_digest``s,
+    and its tenant digests the same, as the schedule run in process on
+    the CPU.
 
 Phases 10, 11 and 14 run right after the build, 15 after 5, 19 and 20
-after 5 and after 15, 16 and 17 after 7, 12, 18, 13 and 21 after 9, 22
-and 23 last.
+after 5 and after 15, 16 and 17 after 7, 12, 18, 13 and 21 after 9, 22,
+23 and 24 last.
 
 With ``--parent DIR`` the run also builds an earlier version of the
 integrator kernel from DIR (its ``magicsoup_tpu_torch/ops/
@@ -250,8 +282,9 @@ a ``{"token_workload": ...}`` line, ``{"persistence": ...}`` and
 ``{"genome_ops": ...}`` line, the flags per window, the seeded and real-state
 K2 lines, the digests, sweep, ladder, microbenchmark and det lines, a
 ``{"differential": ...}`` line, a ``{"guard": ...}`` line, a
-``{"fused_fleet": ...}`` line, a ``{"kernels": [...]}`` line (K1, K2, the
-grouped launch, K3, threefry), the card's name and power limit, and as its
+``{"fused_fleet": ...}`` line, a ``{"serve": ...}`` line, the whole run's
+seconds, a ``{"kernels": [...]}`` line (K1, K2, the grouped launch, K3,
+threefry), the card's name and power limit, and as its
 last line ``{"ok": true, "device": {...}}``.  Any failure raises, and the
 run exits non-zero without that last line.  It needs one card.
 
@@ -268,6 +301,7 @@ from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
+RUN_T0 = time.perf_counter()
 
 # H100 SXM, NVIDIA's data sheet: the f32 rate outside the tensor cores
 # (the kernel's arithmetic is f32 on the CUDA cores); the memory rate is
@@ -3253,6 +3287,578 @@ def _fleet_phase(torch) -> dict:
     return record, entry
 
 
+#: phase 24: the serving plane (``magicsoup_tpu_torch.serve``)
+SERVE_DIR = ROOT / "build" / "chip_smoke_serve"
+SERVE_SEEDS = (42, 43)
+SERVE_WARMUP = 3
+SERVE_WINDOW = 40
+SERVE_LATENCY = 20
+SERVE_FUSED_STEPS = 10
+#: the fused sub-leg's third tenant: another rung, chemistry only
+SERVE_THIRD = dict(seed=44, map_size=64, n_cells=4000)
+#: the det schedule of ``performance/smoke.py::serve_main`` at its sizes
+SERVE_DET = (("t1", 7, 16), ("t2", 11, 16), ("t3", 17, 8))
+SERVE_DET_CELLS = 24
+SERVE_DET_GENOME = 200
+SERVE_DET_K = 2
+SERVE_TIMEOUT = 600
+#: where phase 24 runs (a CPU rehearsal at a tiny size sets "cpu")
+SERVE_DEVICE = "cuda"
+
+
+def _serve_chemistry() -> dict:
+    """The Wood-Ljungdahl chemistry as a tenant spec's ``chemistry``."""
+    from magicsoup_tpu_torch.examples.wood_ljungdahl import MOLECULES, REACTIONS
+
+    return {
+        "molecules": [
+            {"name": m.name, "energy": m.energy, "half_life": m.half_life,
+             "diffusivity": m.diffusivity, "permeability": m.permeability}
+            for m in MOLECULES
+        ],
+        "reactions": [[[m.name for m in subs], [m.name for m in prods]] for subs, prods in REACTIONS],
+    }
+
+
+def _serve_spec(tid: str, seed: int) -> dict:
+    """A headline tenant: phase 5's world and phase 7's selection, K = 1."""
+    return {
+        "tenant": tid, "seed": seed, "map_size": MAP_SIZE, "n_cells": N_CELLS,
+        "genome_size": GENOME_SIZE, "deterministic": False, "chemistry": _serve_chemistry(),
+        "stepper": {"mol_name": "ATP", "kill_below": 1.0, "divide_above": 5.0, "divide_cost": 4.0,
+                    "target_cells": N_CELLS, "lag": 2, "megastep": 1},
+    }
+
+
+def _serve_det_spec(tid: str, seed: int, map_size: int) -> dict:
+    return {
+        "tenant": tid, "seed": seed, "map_size": map_size, "n_cells": SERVE_DET_CELLS,
+        "genome_size": SERVE_DET_GENOME,
+        "chemistry": {
+            "molecules": [{"name": "sv-a", "energy": 10000.0},
+                          {"name": "sv-atp", "energy": 8000.0, "half_life": 100000}],
+            "reactions": [[["sv-a"], ["sv-atp"]]],
+        },
+        "stepper": {"mol_name": "sv-atp", "megastep": SERVE_DET_K},
+    }
+
+
+def _http(port: int, method: str, path: str, body=None, raw: bool = False):
+    """One request to a service on this host: (status, JSON body or text)."""
+    import urllib.error
+    import urllib.request
+
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=data, method=method,
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=SERVE_TIMEOUT) as resp:
+            blob = resp.read()
+            return resp.status, (blob.decode() if raw else json.loads(blob))
+    except urllib.error.HTTPError as err:
+        return err.code, json.loads(err.read())
+
+
+def _http_ok(port: int, method: str, path: str, body=None, raw: bool = False):
+    status, out = _http(port, method, path, body, raw=raw)
+    if status != 200:
+        raise AssertionError(f"serve: {method} {path} -> {status} {out}")
+    return out
+
+
+def _wait_served(port: int, targets: dict, poll: float = 0.002) -> float:
+    """Poll ``GET /tenants/<id>`` until every tenant reached its megasteps;
+    returns the monotonic time it was seen."""
+    deadline = time.monotonic() + SERVE_TIMEOUT
+    todo = dict(targets)
+    while todo:
+        for tid in list(todo):
+            if _http_ok(port, "GET", f"/tenants/{tid}")["megasteps"] >= todo[tid]:
+                del todo[tid]
+        if not todo:
+            break
+        if time.monotonic() > deadline:
+            raise AssertionError(f"serve: tenants {sorted(todo)} never reached {targets}")
+        time.sleep(poll)
+    return time.monotonic()
+
+
+def _hist_p50(parsed: dict, name: str) -> float | None:
+    """The upper bound of the bucket holding the median of a histogram
+    family, summed over its label sets."""
+    buckets: dict[float, float] = {}
+    for s in parsed["samples"]:
+        if s["name"] == f"{name}_bucket":
+            le = float(s["labels"]["le"])
+            buckets[le] = buckets.get(le, 0.0) + s["value"]
+    if not buckets or buckets[max(buckets)] == 0:
+        return None
+    total = buckets[max(buckets)]
+    return next(le for le in sorted(buckets) if buckets[le] >= total / 2)
+
+
+class _WardenTap:
+    """Counts the flags of every trip a warden records, per world label."""
+
+    def __init__(self):
+        self.flags: dict[int, dict[str, int]] = {}
+
+    def __enter__(self):
+        from magicsoup_tpu_torch.check.invariants import decode_invariants
+        from magicsoup_tpu_torch.fleet.warden import FleetWarden
+        from magicsoup_tpu_torch.guard.sentinel import decode_health
+
+        self._orig = orig = FleetWarden.report
+        tap = self
+
+        def report(warden, lane, kind, out):
+            rec = warden._by_lane.get(id(lane))
+            if rec is not None:
+                decoded = (decode_health(out.health) if kind == "sentinel"
+                           else decode_invariants(out.invariants))
+                counts = tap.flags.setdefault(rec.label, {})
+                for name, on in decoded.items():
+                    if on:
+                        key = f"{kind}:{name}"
+                        counts[key] = counts.get(key, 0) + 1
+            return orig(warden, lane, kind, out)
+
+        FleetWarden.report = report
+        return self
+
+    def __exit__(self, *exc):
+        from magicsoup_tpu_torch.fleet.warden import FleetWarden
+
+        FleetWarden.report = self._orig
+
+
+def _serve_http_leg(torch, tmp: Path) -> tuple[dict, int]:
+    """Phase 24 (a): two headline tenants over loopback HTTP; returns the
+    record and the K2 launches of its timed window and latency grants."""
+    from magicsoup_tpu_torch.analysis import runtime
+    from magicsoup_tpu_torch.ops import cuda_integrate as ci
+    from magicsoup_tpu_torch.serve import FleetService
+    from magicsoup_tpu_torch.telemetry import metrics as pulse
+    from magicsoup_tpu_torch.telemetry.recorder import fetch_stats
+
+    tids = [f"wl{seed}" for seed in SERVE_SEEDS]
+    fetch0 = fetch_stats()["fetch_bytes"]
+    device0 = pulse.device_time_stats()["device_time_us"]
+    t0 = time.perf_counter()
+    svc = FleetService(tmp, block=2, device=SERVE_DEVICE).start()
+    port = svc.port
+    # rung-group steps: the groups each scheduler step dispatched (one
+    # while both tenants share a rung), counted where the loop calls it
+    group_steps = [0]
+    scheduler_step = svc.scheduler.step
+
+    def counted_step():
+        scheduler_step()
+        group_steps[0] += len([g for sib in svc.scheduler._groups.values() for g in sib
+                               if g.members()])
+
+    svc.scheduler.step = counted_step
+    try:
+        with _WardenTap() as wtap:
+            for tid, seed in zip(tids, SERVE_SEEDS):
+                out = _http_ok(port, "POST", "/tenants", _serve_spec(tid, seed))
+                if out["status"] != "active" or out["n_cells"] != N_CELLS:
+                    raise AssertionError(f"serve: create {tid} -> {out}")
+            create_s = time.perf_counter() - t0
+            for tid in tids:
+                _http_ok(port, "POST", f"/tenants/{tid}/step", {"megasteps": SERVE_WARMUP})
+            _wait_served(port, {tid: SERVE_WARMUP for tid in tids})
+            _http_ok(port, "GET", "/accounting")  # drains: the window starts empty
+            before, f0 = runtime.snapshot(), fetch_stats()["fetches"]
+            ci.launches = ci.grouped_launches = 0
+            group_steps[0] = 0
+            t_grant = time.monotonic()
+            for tid in tids:
+                _http_ok(port, "POST", f"/tenants/{tid}/step", {"megasteps": SERVE_WINDOW})
+            t_served = _wait_served(port, {tid: SERVE_WARMUP + SERVE_WINDOW for tid in tids})
+            _http_ok(port, "GET", "/accounting")
+            after, f1 = runtime.snapshot(), fetch_stats()["fetches"]
+            window_k2, window_grouped = ci.launches, ci.grouped_launches
+            steps = group_steps[0]
+            dispatches = after["dispatches"] - before["dispatches"]
+            per_step = {
+                "dispatches": dispatches / max(steps, 1),
+                "fetches": (f1 - f0) / max(steps, 1),
+                "k2_launches": window_k2 / max(steps, 1),
+            }
+            if not (SERVE_WINDOW <= steps <= 2 * SERVE_WINDOW) or (
+                    dispatches, f1 - f0, window_k2, window_grouped) != (steps, steps, steps, 0):
+                raise AssertionError(
+                    f"serve window: {steps} rung-group steps, {dispatches} dispatches,"
+                    f" {f1 - f0} fetches, {window_k2} K2 and {window_grouped} grouped launches")
+            integ = {k: after[k] - before.get(k, 0) for k in after
+                     if k.startswith("integrator_dispatches_") and after[k] != before.get(k, 0)}
+            backend = "cuda" if SERVE_DEVICE == "cuda" else "torch-fast"
+            if integ != {f"integrator_dispatches_{backend}": steps}:
+                raise AssertionError(f"serve window: integrator dispatches {integ}")
+            window_s = t_served - t_grant
+            # latency: single-megastep grants, alternating tenants
+            lat = []
+            served = {tid: SERVE_WARMUP + SERVE_WINDOW for tid in tids}
+            for i in range(SERVE_LATENCY):
+                tid = tids[i % 2]
+                served[tid] += 1
+                t1 = time.monotonic()
+                _http_ok(port, "POST", f"/tenants/{tid}/step", {"megasteps": 1})
+                lat.append(_wait_served(port, {tid: served[tid]}) - t1)
+            latency_k2 = ci.launches - window_k2
+            acct = _http_ok(port, "GET", "/accounting")
+            rows = {r["tenant"]: r for r in acct["rows"]}
+            if {tid: rows[tid]["steps"] for tid in tids} != served or (
+                    acct["total_steps"] != sum(r["steps"] for r in acct["rows"])):
+                raise AssertionError(f"serve accounting: rows {acct['rows']}, served {served}")
+            fetch_total = fetch_stats()["fetch_bytes"] - fetch0
+            device_total = pulse.device_time_stats()["device_time_us"] - device0
+            if (acct["total_fetch_bytes"], acct["total_device_us"]) != (fetch_total, device_total) or (
+                    sum(r["fetch_bytes"] for r in acct["rows"]) != fetch_total
+                    or sum(r["device_us"] for r in acct["rows"]) != device_total):
+                raise AssertionError(
+                    f"serve accounting not conserved: {acct}, process fetch bytes {fetch_total},"
+                    f" device us {device_total}")
+            scrapes = [pulse.parse_exposition(_http_ok(port, "GET", "/metrics", raw=True))
+                       for _ in range(2)]
+            for name, kind in scrapes[0]["types"].items():
+                if kind != "counter":
+                    continue
+                for s in scrapes[0]["samples"]:
+                    if s["name"] == name:
+                        later = pulse.sample_value(scrapes[1], name, **s["labels"])
+                        if later is None or later < s["value"]:
+                            raise AssertionError(f"serve metrics: {name} {s['labels']} went"
+                                                 f" {s['value']} -> {later}")
+            health = _http_ok(port, "GET", "/healthz")
+            digests = {tid: _http_ok(port, "GET", f"/tenants/{tid}/digest")["digest"] for tid in tids}
+            observed = {tid: _http_ok(port, "GET", f"/tenants/{tid}") for tid in tids}
+            svc.stop()
+        if svc._loop_thread.is_alive():
+            raise AssertionError("serve: the loop did not stop")
+        labels = {tid: svc._tenants[tid].label for tid in tids}
+        for tid in tids:
+            _check_state(svc._tenants[tid].lane.world, f"served tenant {tid}")
+        flags = {tid: wtap.flags.get(labels[tid], {}) for tid in tids}
+        other = sorted({f for fl in flags.values() for f in fl} - {"invariant:dead_param_residue"})
+        if other:
+            raise AssertionError(f"serve: flags other than dead_param_residue: {flags}")
+        if not (tmp / "tenants.json").exists():
+            raise AssertionError("serve: the stop wrote no registry")
+    finally:
+        if svc._loop_thread.is_alive():
+            svc.stop()
+    import numpy as np
+
+    return {
+        "tenants": tids,
+        "create_s": create_s,
+        "window_megasteps_per_tenant": SERVE_WINDOW,
+        "grant_to_served_s": window_s,
+        "world_steps_per_s": len(tids) * SERVE_WINDOW / window_s,
+        "group_steps": steps,
+        "per_group_step": per_step,
+        "integrator_dispatches": integ,
+        "census": {k: after[k] - before.get(k, 0) for k in after},
+        "latency_s": lat,
+        "latency_p50_s": float(np.percentile(lat, 50)),
+        "latency_p99_s": float(np.percentile(lat, 99)),
+        "accounting": acct,
+        "tick_p50_s": _hist_p50(scrapes[1], "magicsoup_tick_seconds"),
+        "command_latency_p50_s": _hist_p50(scrapes[1], "magicsoup_command_latency_seconds"),
+        "scrapes_monotone": True,
+        "health": health,
+        "digests": digests,
+        "n_cells": {tid: observed[tid]["n_cells"] for tid in tids},
+        "stats": {tid: observed[tid]["stats"] for tid in tids},
+        "flags": flags,
+        "dead_param_residue_trips": {
+            tid: flags[tid].get("invariant:dead_param_residue", 0) for tid in tids},
+    }, window_k2 + latency_k2
+
+
+def _serve_fused_leg(torch, tmp: Path) -> dict:
+    """Phase 24 (a), the fused sub-leg: the two headline tenants and a
+    chemistry-only tenant of another rung, ``fusion="fleet"``, driven by
+    manual ticks."""
+    from magicsoup_tpu_torch.analysis import runtime
+    from magicsoup_tpu_torch.ops import cuda_integrate as ci
+    from magicsoup_tpu_torch.serve import FleetService
+    from magicsoup_tpu_torch.telemetry.recorder import fetch_stats
+
+    svc = FleetService(tmp, block=2, fusion="fleet", device=SERVE_DEVICE)
+    third = {"tenant": "chem", "seed": SERVE_THIRD["seed"], "map_size": SERVE_THIRD["map_size"],
+             "n_cells": SERVE_THIRD["n_cells"], "genome_size": GENOME_SIZE, "deterministic": False,
+             "chemistry": _serve_chemistry(),
+             # the default knobs (no kill, no division, no spawn) at K = 1
+             "stepper": {"mol_name": "ATP", "megastep": 1}}
+    specs = [_serve_spec(f"wl{seed}", seed) for seed in SERVE_SEEDS] + [third]
+    tids = [s["tenant"] for s in specs]
+    for spec in specs:
+        svc._execute("create", spec)
+
+    def run(n):
+        for tid in tids:
+            svc._execute("step", {"tenant": tid, "megasteps": n})
+        for _ in range(n):
+            svc._tick()
+        svc._execute("accounting", {})
+
+    run(SERVE_WARMUP)
+    before, f0 = runtime.snapshot(), fetch_stats()["fetches"]
+    ci.launches = ci.grouped_launches = 0
+    t0 = time.perf_counter()
+    run(SERVE_FUSED_STEPS)
+    dt = time.perf_counter() - t0
+    after, f1 = runtime.snapshot(), fetch_stats()["fetches"]
+    got = {
+        "dispatches": after["dispatches"] - before["dispatches"],
+        "fused_groups": after["fused_groups"] - before["fused_groups"],
+        "fetches": f1 - f0,
+        "grouped_launches": ci.grouped_launches,
+        "k2_launches": ci.launches,
+    }
+    n_groups = len([g for sib in svc.scheduler._groups.values() for g in sib])
+    want = {"dispatches": SERVE_FUSED_STEPS, "fused_groups": n_groups * SERVE_FUSED_STEPS,
+            "fetches": SERVE_FUSED_STEPS, "grouped_launches": SERVE_FUSED_STEPS, "k2_launches": 0}
+    if n_groups < 2 or got != want:
+        raise AssertionError(f"serve fused: {n_groups} groups, {got}, want {want}")
+    acct = svc._execute("accounting", {})
+    served = {tid: SERVE_WARMUP + SERVE_FUSED_STEPS for tid in tids}
+    if {r["tenant"]: r["steps"] for r in acct["rows"]} != served or (
+            acct["total_fetch_bytes"] != sum(r["fetch_bytes"] for r in acct["rows"])
+            or acct["total_device_us"] != sum(r["device_us"] for r in acct["rows"])):
+        raise AssertionError(f"serve fused accounting: {acct}")
+    for tid in tids:
+        svc._execute("digest", {"tenant": tid})
+        _check_state(svc._tenants[tid].lane.world, f"fused tenant {tid}")
+    n_third = svc._tenants["chem"].lane.world.n_cells
+    if n_third != SERVE_THIRD["n_cells"]:
+        raise AssertionError(f"serve fused: the chemistry-only tenant has {n_third} cells")
+    return {
+        "tenants": tids,
+        "groups": n_groups,
+        "steps": SERVE_FUSED_STEPS,
+        "per_step": {k: v / SERVE_FUSED_STEPS for k, v in got.items()},
+        "world_steps_per_s": len(tids) * SERVE_FUSED_STEPS / dt,
+        "window_s": dt,
+        "accounting": acct,
+    }, ci.grouped_launches
+
+
+def _serve_cpu_reference(tmp: Path) -> tuple[dict, dict]:
+    """The det schedule's first half and digests in process on the CPU:
+    tenant digests and world state digests at megastep 3."""
+    from magicsoup_tpu_torch.check.differential import state_digest
+    from magicsoup_tpu_torch.serve import FleetService
+
+    with _det_env():
+        svc = FleetService(tmp, block=2, device="cpu")
+        for tid, seed, size in SERVE_DET:
+            svc._execute("create", _serve_det_spec(tid, seed, size))
+
+        def serve(tid, n):
+            svc._execute("step", {"tenant": tid, "megasteps": n})
+            while svc._tenants[tid].budget:
+                svc._tick()
+
+        for tid, _, _ in SERVE_DET:
+            serve(tid, 2)
+        for tid, _, _ in SERVE_DET:
+            svc._execute("checkpoint", {"tenant": tid})
+        svc._execute("accounting", {})
+        for tid, _, _ in SERVE_DET:
+            serve(tid, 1)
+        digests = {tid: svc._execute("digest", {"tenant": tid})["digest"] for tid, _, _ in SERVE_DET}
+        states = {tid: state_digest(svc._tenants[tid].lane.world) for tid, _, _ in SERVE_DET}
+    return digests, states
+
+
+def _serve_children(torch, tmp: Path) -> dict:
+    """Phase 24 (b): the det schedule of ``performance/smoke.py --serve``
+    through ``python -m magicsoup_tpu_torch.serve`` children on the card:
+    a baseline, a victim killed after the first half and its restart."""
+    import signal
+    import subprocess
+
+    from magicsoup_tpu_torch.check.differential import state_digest
+    from magicsoup_tpu_torch.guard import CheckpointManager, restore_run
+
+    env = dict(os.environ, MAGICSOUP_TPU_DETERMINISTIC="1")
+    procs, logs = [], []
+    tmp.mkdir(parents=True, exist_ok=True)
+    t_start = time.perf_counter()
+
+    def spawn(name):
+        log = open(tmp / f"{name}.log", "a")
+        logs.append(log)
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "magicsoup_tpu_torch.serve", "--dir", str(tmp / name),
+             "--port", "0", "--block", "2"]
+            + ([] if SERVE_DEVICE == "cuda" else ["--device", SERVE_DEVICE]),
+            cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=log, text=True,
+        )
+        procs.append(proc)
+        t0 = time.perf_counter()
+        line = proc.stdout.readline()
+        if not line.startswith("{"):
+            raise AssertionError(f"serve child {name} printed no ready line:"
+                                 f" {(tmp / f'{name}.log').read_text()[-3000:]}")
+        return proc, json.loads(line), time.perf_counter() - t0
+
+    def first_half(port):
+        for tid, seed, size in SERVE_DET:
+            out = _http_ok(port, "POST", "/tenants", _serve_det_spec(tid, seed, size))
+            if out["status"] != "active":
+                raise AssertionError(f"serve child: create {tid} -> {out}")
+        for tid, _, _ in SERVE_DET:
+            _http_ok(port, "POST", f"/tenants/{tid}/step", {"megasteps": 2})
+        _wait_served(port, {tid: 2 for tid, _, _ in SERVE_DET})
+        for tid, _, _ in SERVE_DET:
+            _http_ok(port, "POST", f"/tenants/{tid}/checkpoint")
+
+    def second_half(port):
+        for tid, _, _ in SERVE_DET:
+            _http_ok(port, "POST", f"/tenants/{tid}/step", {"megasteps": 1})
+        _wait_served(port, {tid: 3 for tid, _, _ in SERVE_DET})
+
+    def digests(port):
+        return {tid: _http_ok(port, "GET", f"/tenants/{tid}/digest")["digest"]
+                for tid, _, _ in SERVE_DET}
+
+    def stop(proc, name):
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=SERVE_TIMEOUT)
+        if rc != 0:
+            raise AssertionError(f"serve child {name}: SIGTERM exit code {rc}")
+
+    k = SERVE_DET_K
+    try:
+        base, ready, ready_s = spawn("a")
+        port = ready["port"]
+        first_half(port)
+        _http_ok(port, "GET", "/accounting")
+        c1 = _http_ok(port, "GET", "/counters")["counters"]
+        second_half(port)
+        _http_ok(port, "GET", "/accounting")
+        c2 = _http_ok(port, "GET", "/counters")["counters"]
+        want_digests = digests(port)
+        fetch_delta = c2["fetches"] - c1["fetches"]
+        if fetch_delta != 3:
+            raise AssertionError(f"serve child: {fetch_delta} fetches for 3 sequential"
+                                 " single-megastep grants (want 3)")
+        # the checkpoints flushed every lane: each resumed without a rebuild
+        attach = {k: c2[k] - c1[k] for k in ("attach_full", "attach_skipped")}
+        if attach != {"attach_full": 0, "attach_skipped": len(SERVE_DET)}:
+            raise AssertionError(f"serve child: re-attaches after the checkpoints {attach}")
+        _http_ok(port, "POST", "/admission", {"compile_budget": 0})
+        status, out = _http(port, "POST", "/tenants", _serve_det_spec("cold", 5, 32))
+        if status != 429:
+            raise AssertionError(f"serve child: a cold create under budget 0 -> {status} {out}")
+        out = _http_ok(port, "POST", "/tenants", _serve_det_spec("t4", 23, 16))
+        if out["status"] != "active":
+            raise AssertionError(f"serve child: a warm create under budget 0 -> {out}")
+        compiles0 = _http_ok(port, "GET", "/counters")["counters"]["compiles"]
+        _http_ok(port, "POST", "/tenants/t4/step", {"megasteps": 1})
+        _wait_served(port, {"t4": 1})
+        _http_ok(port, "GET", "/accounting")
+        counters = _http_ok(port, "GET", "/counters")
+        warm_compiles = counters["counters"]["compiles"] - compiles0
+        if warm_compiles != 0:
+            raise AssertionError(f"serve child: the warm tenant's step charged {warm_compiles} compiles")
+        acct = _http_ok(port, "GET", "/accounting")
+        served = {r["tenant"]: r["steps"] for r in acct["rows"]}
+        if served != {"t1": 3 * k, "t2": 3 * k, "t3": 3 * k, "t4": k} or (
+                acct["total_steps"] != sum(r["steps"] for r in acct["rows"])
+                or acct["total_fetch_bytes"] != sum(r["fetch_bytes"] for r in acct["rows"])
+                or acct["total_device_us"] != sum(r["device_us"] for r in acct["rows"])):
+            raise AssertionError(f"serve child accounting: {acct}")
+        stop(base, "a")
+        if not (tmp / "a" / "tenants.json").exists() or not list(
+                (tmp / "a" / "worlds").glob("world-003-*.msck")):
+            raise AssertionError("serve child: SIGTERM left no registry or no final checkpoint")
+
+        victim, ready, _ = spawn("b")
+        first_half(ready["port"])
+        victim.send_signal(signal.SIGKILL)
+        if victim.wait(timeout=60) != -signal.SIGKILL:
+            raise AssertionError("serve child: the victim did not die of SIGKILL")
+        again, ready, restart_ready_s = spawn("b")
+        port = ready["port"]
+        if ready["tenants"] != 3:
+            raise AssertionError(f"serve child: the restart re-adopted {ready['tenants']} tenants")
+        for tid, _, _ in SERVE_DET:
+            if _http_ok(port, "GET", f"/tenants/{tid}")["megasteps"] != 2:
+                raise AssertionError(f"serve child: {tid} recovered off its checkpoint")
+        second_half(port)
+        got_digests = digests(port)
+        if got_digests != want_digests:
+            raise AssertionError(f"serve child: restart digests {got_digests} != {want_digests}")
+        stop(again, "b")
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            proc.stdout.close()
+        for log in logs:
+            log.close()
+    children_s = time.perf_counter() - t_start
+    cpu_digests, cpu_states = _serve_cpu_reference(tmp / "cpu")
+    card_states = {}
+    for label, (tid, _, _) in enumerate(SERVE_DET):
+        world, _, meta = restore_run(CheckpointManager(tmp / "a" / "worlds", keep=3,
+                                                       prefix=f"world-{label:03d}"), device="cpu")
+        if meta["megasteps"] != 3:
+            raise AssertionError(f"serve child: {tid}'s final checkpoint is at {meta['megasteps']}")
+        card_states[tid] = state_digest(world)
+    if card_states != cpu_states or want_digests != cpu_digests:
+        raise AssertionError(f"serve: det digests on the card {card_states}, {want_digests} !="
+                             f" the CPU's {cpu_states}, {cpu_digests}")
+    return {
+        "ready_s": ready_s,
+        "restart_ready_s": restart_ready_s,
+        "fetches_for_3_grants": fetch_delta,
+        "reattaches_after_checkpoints": attach,
+        "warm_admission_compiles": warm_compiles,
+        "admission": counters["admission"],
+        "accounting_steps": served,
+        "restart_bit_identical": True,
+        "card_equals_cpu_state_and_tenant_digests": True,
+        "state_digests": card_states,
+        "children_s": children_s,
+    }
+
+
+def _serve_phase(torch, fleet_world_steps_per_s: float) -> tuple[dict, dict]:
+    """Phase 24: serving on the card; returns its record and the serve
+    launches of K2 and of the grouped entry."""
+    import shutil
+
+    shutil.rmtree(SERVE_DIR, ignore_errors=True)
+    SERVE_DIR.mkdir(parents=True)
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    # the earlier phases' live tensors: the phase's own peak is above them
+    mem0 = torch.cuda.memory_allocated()
+    try:
+        http, k2_launches = _serve_http_leg(torch, SERVE_DIR / "http")
+        print(f"serve: {http['world_steps_per_s']:.2f} world-steps/s over HTTP,"
+              f" latency p50 {http['latency_p50_s']:.4f} s p99 {http['latency_p99_s']:.4f} s",
+              flush=True)
+        fused, grouped_launches = _serve_fused_leg(torch, SERVE_DIR / "fused")
+        peak = torch.cuda.max_memory_allocated()
+        det = _serve_children(torch, SERVE_DIR / "det")
+    finally:
+        shutil.rmtree(SERVE_DIR, ignore_errors=True)
+    record = {"http": http, "fused": fused, "det": det, "peak_mem_bytes": peak,
+              "peak_mem_above_start_bytes": peak - mem0,
+              "fleet_phase7_world_steps_per_s": fleet_world_steps_per_s,
+              "wall_s": time.perf_counter() - t0}
+    return record, {"k2": k2_launches, "grouped": grouped_launches}
+
+
 def main() -> None:
     global DUMP_DIR, PARENT
     import argparse
@@ -3390,6 +3996,10 @@ def main() -> None:
     print(json.dumps({"fused_fleet": fleet_phase}))
     k2["fleet_restore_launches"] = fleet_phase["fleet_checkpoint"]["restored_launches"]
     k2["mixed_fleet_per_rung_launches"] = fleet_phase["mixed_fleet"]["launches"]["rung"]
+    serve, serve_launches = _serve_phase(torch, fleet["steps_per_s_aggregate"])
+    print(json.dumps({"serve": serve}))
+    k2["serve_launches"] = serve_launches["k2"]
+    grouped["serve_launches"] = serve_launches["grouped"]
 
     from magicsoup_tpu_torch.performance import card_line
 
@@ -3404,6 +4014,7 @@ def main() -> None:
         "guard_resume_cases": guard_launches["threefry_resume_cases_parent"],
         "mixed_fleet": fleet_phase["mixed_fleet"]["threefry_launches"],
     }
+    print(json.dumps({"run": {"wall_s": time.perf_counter() - RUN_T0}}))
     print(json.dumps({"kernels": [kernel, k2, grouped, _k3_entry(ladder),
                                   _threefry_entry(threefry, per_path)]}))
     print(card)

@@ -18,14 +18,16 @@ import re
 import subprocess
 from pathlib import Path
 
-_PKG = Path(__file__).resolve().parent
 _INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
 
 
 def build_dir() -> Path:
-    """Where built libraries go: ``build/magicsoup_tpu_torch/`` beside the
-    package (git-ignored)."""
-    return _PKG.parent / "build" / "magicsoup_tpu_torch"
+    """Where built libraries go: ``MAGICSOUP_COMPILE_CACHE_DIR``, else
+    ``build/magicsoup_tpu_torch/`` beside the package (git-ignored); see
+    :mod:`magicsoup_tpu_torch.cache`."""
+    from magicsoup_tpu_torch.cache import compile_cache_dir
+
+    return compile_cache_dir()
 
 
 def source_closure(src: Path) -> list[Path]:
@@ -61,10 +63,15 @@ def build_shared(name: str, src: Path, cmd: list[str], timeout: int) -> Path:
     """Compile ``src`` with ``cmd + [src, "-o", out]`` into
     :func:`library_path` unless that file exists; returns its path, with
     the compiler's output in ``<library>.log``.  Raises ``RuntimeError``
-    with the compiler's output on failure."""
+    with the compiler's output on failure.  Each call is counted in
+    ``analysis.runtime``: a library found built is a build-cache hit, a
+    compiler run a compile."""
+    from magicsoup_tpu_torch.analysis import runtime as _runtime
+
     src = Path(src)
     out = library_path(name, src, cmd)
     if out.exists():
+        _runtime.note_build(compiled=False)
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
@@ -84,4 +91,5 @@ def build_shared(name: str, src: Path, cmd: list[str], timeout: int) -> Path:
     log = out.with_name(f"{out.name}.log")
     log.write_text(proc.stdout + proc.stderr)
     os.replace(tmp, out)
+    _runtime.note_build(compiled=True)
     return out

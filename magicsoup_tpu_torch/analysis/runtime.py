@@ -1,14 +1,29 @@
 """
 The dispatch census: process-wide counters of device dispatches and of the
-integrator launches they carried.  Counterpart of the dispatch counters of
-:mod:`magicsoup_tpu.analysis.runtime` (``note_dispatch``,
-``note_integrator_dispatch``, ``snapshot``); the JAX package's compile
-counters have no role in eager PyTorch.  As in the JAX package,
+integrator launches they carried, of compiles, restacks and re-attaches.
+Counterpart of :mod:`magicsoup_tpu.analysis.runtime`, with its counter
+names wherever the port has a counterpart.  As in the JAX package,
 :func:`snapshot` also carries the chaos plane's counters (``chaos_fired``,
 ``degraded`` and every ``guard.chaos.note_counter`` key) and the
 device-time census (``device_time_us``, ``device_dispatches``), so the
 counters rows of a telemetry stream hold every counted failure.
 
+- ``compiles`` (:func:`compile_count`) counts what a cold shape costs in
+  eager PyTorch, where nothing is traced: each native library build that
+  ran a compiler (``_build.build_shared``: nvcc or g++), and each fleet
+  dispatch at a program shape this process has not dispatched before
+  (rung key, group block, megastep and the fused set), where the caching
+  allocator grows to a new working set.  A warm rung charges 0, a cold
+  one at least 1.  ``persistent_cache_hits`` / ``persistent_cache_misses``
+  count the build cache's outcomes: a library found already built on disk
+  is a hit, a compiler run a miss;
+- ``restack_full`` / ``restack_inserts`` / ``restack_skipped`` count the
+  fleet's group stack rebuilds, single-slot moves and residents left in
+  place; ``attach_full`` / ``attach_skipped`` count a stepper's full
+  re-attaches after a flush and the fast ones that found the world
+  untouched and kept the host replay;
+- ``phenotype_hits`` / ``phenotype_misses`` / ``phenotype_evictions`` /
+  ``phenotype_pickle_drops`` count the phenotype caches' outcomes;
 - ``dispatches`` counts fleet group dispatches, ``fused_groups`` the rung
   groups they carried (one each, without cross-rung fusion);
 - ``integrator_dispatches_<backend>`` counts dispatches that ran the
@@ -31,6 +46,20 @@ counters rows of a telemetry stream hold every counted failure.
 import threading
 
 _lock = threading.Lock()
+_compiles = 0
+_cache_hits = 0
+_cache_misses = 0
+# program shapes dispatched so far; like a jit cache it survives
+# reset_counters, so a warm shape stays warm
+_shapes_seen: set = set()
+_restack_full = 0
+_restack_inserts = 0
+_restack_skipped = 0
+_attach_full = 0
+_attach_skipped = 0
+_pheno_hits = 0
+_pheno_misses = 0
+_pheno_evictions = 0
 _dispatches = 0
 _fused_groups = 0
 _integrator_dispatches: dict[str, int] = {}
@@ -41,6 +70,62 @@ _genome_fetch_bytes = 0
 _genome_length_fetches = 0
 _genome_length_fetch_bytes = 0
 _pheno_pickle_drops = 0
+
+
+def compile_count() -> int:
+    """Cold-shape costs so far in this process (see the module notes)."""
+    with _lock:
+        return _compiles
+
+
+def note_build(compiled: bool) -> None:
+    """Count one native library lookup: ``compiled`` when a compiler ran
+    (a compile and a build-cache miss), else a build-cache hit."""
+    global _compiles, _cache_hits, _cache_misses
+    with _lock:
+        if compiled:
+            _compiles += 1
+            _cache_misses += 1
+        else:
+            _cache_hits += 1
+
+
+def note_program_shape(key) -> None:
+    """Count a dispatch at program shape ``key`` as a compile the first
+    time this process sees it."""
+    global _compiles
+    with _lock:
+        if key not in _shapes_seen:
+            _shapes_seen.add(key)
+            _compiles += 1
+
+
+def note_restack(full: int = 0, inserts: int = 0, skipped: int = 0) -> None:
+    """Count group stack rebuilds, single-slot moves and untouched
+    residents (called by the fleet scheduler)."""
+    global _restack_full, _restack_inserts, _restack_skipped
+    with _lock:
+        _restack_full += full
+        _restack_inserts += inserts
+        _restack_skipped += skipped
+
+
+def note_attach(full: int = 0, skipped: int = 0) -> None:
+    """Count re-attaches after a flush: ``full`` host-replay rebuilds and
+    ``skipped`` fast ones that kept the host replay."""
+    global _attach_full, _attach_skipped
+    with _lock:
+        _attach_full += full
+        _attach_skipped += skipped
+
+
+def note_phenotype_cache(hits: int = 0, misses: int = 0, evictions: int = 0) -> None:
+    """Count phenotype-cache outcomes (called by the caches)."""
+    global _pheno_hits, _pheno_misses, _pheno_evictions
+    with _lock:
+        _pheno_hits += hits
+        _pheno_misses += misses
+        _pheno_evictions += evictions
 
 
 def note_integrator_dispatch(backend: str, n: int = 1) -> None:
@@ -91,7 +176,12 @@ def note_phenotype_pickle_drops(n: int) -> None:
 def phenotype_cache_stats() -> dict[str, int]:
     """The phenotype caches' process-wide counters, read under one lock."""
     with _lock:
-        return {"pickle_drops": _pheno_pickle_drops}
+        return {
+            "hits": _pheno_hits,
+            "misses": _pheno_misses,
+            "evictions": _pheno_evictions,
+            "pickle_drops": _pheno_pickle_drops,
+        }
 
 
 def snapshot() -> dict[str, int]:
@@ -103,7 +193,24 @@ def snapshot() -> dict[str, int]:
     from magicsoup_tpu_torch.telemetry import metrics as _metrics
 
     with _lock:
-        out = {"dispatches": _dispatches, "fused_groups": _fused_groups}
+        out = {
+            "compiles": _compiles,
+            "persistent_cache_hits": _cache_hits,
+            "persistent_cache_misses": _cache_misses,
+            "phenotype_hits": _pheno_hits,
+            "phenotype_misses": _pheno_misses,
+            "phenotype_evictions": _pheno_evictions,
+            "phenotype_pickle_drops": _pheno_pickle_drops,
+            "restack_full": _restack_full,
+            "restack_inserts": _restack_inserts,
+            "restack_skipped": _restack_skipped,
+            "attach_full": _attach_full,
+            "attach_skipped": _attach_skipped,
+            "dispatches": _dispatches,
+            "fused_groups": _fused_groups,
+            "genome_decode_calls": _genome_decode_calls,
+            "genome_decode_rows": _genome_decode_rows,
+        }
         for name in sorted(_integrator_dispatches):
             out[f"integrator_dispatches_{name}"] = _integrator_dispatches[name]
     out.update(_chaos.runtime_counters())
@@ -126,7 +233,11 @@ def genome_stats() -> dict[str, int]:
 
 def reset_counters() -> None:
     """Zero every counter, the chaos counters and the device-time census
-    included (tests assert absolute values after it)."""
+    included (tests assert absolute values after it).  The set of program
+    shapes already dispatched is kept: a warm shape stays warm."""
+    global _compiles, _cache_hits, _cache_misses
+    global _restack_full, _restack_inserts, _restack_skipped
+    global _attach_full, _attach_skipped, _pheno_hits, _pheno_misses, _pheno_evictions
     global _dispatches, _fused_groups, _genome_decode_calls, _genome_decode_rows
     global _genome_fetches, _genome_fetch_bytes, _pheno_pickle_drops
     global _genome_length_fetches, _genome_length_fetch_bytes
@@ -136,6 +247,10 @@ def reset_counters() -> None:
     _chaos.reset_counters()
     _metrics.reset_device_time()
     with _lock:
+        _compiles = _cache_hits = _cache_misses = 0
+        _restack_full = _restack_inserts = _restack_skipped = 0
+        _attach_full = _attach_skipped = 0
+        _pheno_hits = _pheno_misses = _pheno_evictions = 0
         _dispatches = 0
         _fused_groups = 0
         _genome_decode_calls = _genome_decode_rows = 0

@@ -447,15 +447,21 @@ class FleetScheduler:
         members = group.members()
         shape = (len(group.slots), group.maxp, group.maxd)
         if group.fstate is not None and group.stacked_shape == shape:
+            inserts = skipped = 0
             for slot, lane in members:
-                if not lane._fleet_resident:
+                if lane._fleet_resident:
+                    skipped += 1
+                else:
                     self._insert(group, slot, lane)
+                    inserts += 1
             for slot in sorted(group.stale):
                 if group.slots[slot] is None:
                     insert_world(group.fstate, slot, zeros_world_like(
                         DeviceState(*(t[slot] for t in group.fstate))))
                     insert_world(group.fparams, slot, zeros_world_like(
                         CellParams(*(t[slot] for t in group.fparams))))
+                    inserts += 1
+            _runtime.note_restack(inserts=inserts, skipped=skipped)
         else:
             for _, lane in members:
                 if lane._fleet_resident:
@@ -475,6 +481,7 @@ class FleetScheduler:
             for _, lane in members:
                 lane._fleet_resident = True
             group.stacked_shape = shape
+            _runtime.note_restack(full=1)
         group.stale.clear()
         group.dirty = False
 
@@ -568,6 +575,7 @@ class FleetScheduler:
             lane_faults=False,
         )
         t_dispatched = time.perf_counter()
+        _runtime.note_program_shape(("group", group.key, gi.B))
         _runtime.note_dispatch(dispatches=1, fused_groups=1)
         # the one group step ran every world's integrator steps: ONE count
         _runtime.note_integrator_dispatch(integrator)
@@ -620,6 +628,9 @@ class FleetScheduler:
         t_dispatched = time.perf_counter()
         for group, fs, fp in zip(fused_set, new_states, new_params):
             group.fstate, group.fparams = fs, fp
+        _runtime.note_program_shape(
+            ("fused", tuple((g.key, p.B) for g, p in zip(fused_set, prepped)))
+        )
         _runtime.note_dispatch(dispatches=1, fused_groups=len(fused_set))
         # one count per backend the fused dispatch ran
         for name in sorted({s[4] for s in statics}):

@@ -23,6 +23,7 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
+from magicsoup_tpu_torch.analysis import runtime as _runtime
 from magicsoup_tpu_torch.constants import CODON_SIZE, ProteinSpecType
 from magicsoup_tpu_torch.native import (
     TranslationTables,
@@ -329,6 +330,7 @@ class PhenotypeCache:
         n_hits = len(genomes) - len(misses)
         self.hits += n_hits
         self.misses += len(misses)
+        _runtime.note_phenotype_cache(hits=n_hits, misses=len(misses))
         return [entries[g] for g in genomes]
 
     def lookup_tokens(self, tokens, lengths, idxs=None, hashes=None) -> list[PhenotypeEntry]:
@@ -370,6 +372,7 @@ class PhenotypeCache:
         n_hits = len(hashes) - len(miss_keys)
         self.hits += n_hits
         self.misses += len(miss_keys)
+        _runtime.note_phenotype_cache(hits=n_hits, misses=len(miss_keys))
         return [entries[h] for h in hashes]
 
     def dense_rows(
@@ -410,4 +413,4 @@ class PhenotypeCache:
             evicted += 1
         if evicted:
             self.evictions += evicted
-
+            _runtime.note_phenotype_cache(evictions=evicted)

@@ -378,6 +378,11 @@ class Kinetics:
         self.max_proteins = 0
         self.max_doms = 1
         self.params = self._alloc(0, 0)
+        # bumped by every in-place write into ``params`` rows (the JAX
+        # package replaces its arrays instead): the stepper's flush token
+        # reads it to see a parameter change between a flush and the
+        # next re-attach
+        self._param_epoch = 0
 
     # ------------------------------------------------------------------ #
     # capacity management                                                #
@@ -577,6 +582,7 @@ class Kinetics:
             return
         p_r, d_r = int(dense.shape[1]), int(dense.shape[2])
         chunk = self._assembly_chunk(p_r, d_r)
+        self._param_epoch += 1
         for a in range(0, b, chunk):
             assemble_rows(
                 self.params,
@@ -600,6 +606,7 @@ class Kinetics:
         cell_idxs = np.asarray(cell_idxs, dtype=np.int64)
         if len(cell_idxs) == 0:
             return
+        self._param_epoch += 1
         unset_rows(self.params, torch.from_numpy(cell_idxs).to(self.device))
 
     def copy_cell_params(
@@ -610,6 +617,7 @@ class Kinetics:
         to_idxs = np.asarray(to_idxs, dtype=np.int64)
         if len(from_idxs) == 0:
             return
+        self._param_epoch += 1
         copy_rows(
             self.params,
             torch.from_numpy(from_idxs).to(self.device),
@@ -667,6 +675,7 @@ class Kinetics:
 
     def __setstate__(self, state: dict):
         self.__dict__.update(state)
+        self.__dict__.setdefault("_param_epoch", 0)
         dev = restored_device(state["device"], "Kinetics")
         self.device = dev
         self.params = CellParams(*(torch.from_numpy(a).to(dev) for a in state["params"]))

@@ -1158,10 +1158,54 @@ class PipelinedStepper:
         )
         self._needs_attach = False
 
+    def _world_token(self) -> tuple:
+        """Identity fingerprint of the attached world's mutable state,
+        stamped by :meth:`flush` and compared at the next re-attach: equal
+        tokens prove that no classic-API mutation touched the world in
+        between, so the host-replay rebuild can be skipped.  Mutators that
+        replace an object are seen through the objects themselves, held
+        as STRONG references and compared with ``is`` (a stored ``id()``
+        could match a replacement allocated at a recycled address); the
+        in-place mutators bump ``World._host_epoch`` or, for parameter
+        rows, ``Kinetics._param_epoch``.  A token world's store tensor
+        stands in for the genome list (every store mutator replaces it).
+        Direct in-place edits of tensor or list entries are not seen, and
+        were never a supported mutation path."""
+        w = self.world
+        return (
+            w._host_epoch,
+            w.kinetics._param_epoch,
+            w.n_cells,
+            w._capacity,
+            w._molecule_map,
+            w._cell_molecules,
+            w._positions_dev,
+            w.kinetics,
+            w.kinetics.params,
+            w._genome_store.tokens if w._genome_store is not None else w._genomes_list,
+            w.cell_labels,
+            w._np_positions,
+            w._np_lifetimes,
+            w._np_divisions,
+            w._np_cell_map,
+        )
+
+    @staticmethod
+    def _token_unchanged(stamped: tuple | None, current: tuple) -> bool:
+        """Whether two :meth:`_world_token` fingerprints prove the world
+        untouched: the scalar slots by value, the objects by identity (an
+        equal-valued copy is still a mutation)."""
+        if stamped is None:
+            return False
+        return stamped[:4] == current[:4] and all(
+            a is b for a, b in zip(stamped[4:], current[4:])
+        )
+
     def _attach(self, key: torch.Tensor) -> None:
         """(Re)build device and replay state from the attached world — at
         construction, after a flush and after a capacity growth.  The
         device leaves are copies: the world keeps its own."""
+        self._flush_token = None
         w = self.world
         dev = w.device
         self._cap = w._capacity
@@ -1339,9 +1383,27 @@ class PipelinedStepper:
             self.stats["quarantined"] += quarantine_world(self.world)
         if self._needs_attach:
             # after a flush the world may have been changed through the
-            # classic API: re-pull its state
-            self.world._ensure_capacity(self.world.n_cells + 1)
-            self._attach(self._state.key)
+            # classic API: re-pull its state, unless the flush token proves
+            # that nothing touched it
+            if (
+                self._token_unchanged(self._flush_token, self._world_token())
+                and self.world._capacity >= self.world.n_cells + 1
+            ):
+                # fast re-attach: the host replay is still exact, so only
+                # the device leaves the flush handed to the world are
+                # copied back, as _attach copies them (the world keeps its
+                # own)
+                w = self.world
+                self._state = self._state._replace(
+                    mm=w._molecule_map.clone()[None],
+                    cm=w._cell_molecules.clone()[None],
+                    pos=w._positions_dev.clone()[None],
+                )
+                _runtime.note_attach(skipped=1)
+            else:
+                self.world._ensure_capacity(self.world.n_cells + 1)
+                self._attach(self._state.key)
+                _runtime.note_attach(full=1)
             self._needs_attach = False
         self._drain(block=False)
 
@@ -2150,7 +2212,9 @@ class PipelinedStepper:
         w._mm_cache = None
         w._cm_cache = None
         # the world is the source of truth now; the next step re-pulls it
+        # unless the stamp below proves nothing touched it (fast re-attach)
         self._needs_attach = True
+        self._flush_token = self._world_token()
         # a flush is a reporting boundary: a counters row (a fresh "last"
         # for the summary's deltas), then the buffered rows go to disk
         self.telemetry.emit_counters()

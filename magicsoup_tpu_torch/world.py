@@ -273,6 +273,13 @@ class World:
         self._np_positions = np.zeros((0, 2), dtype=np.int32)
         self._np_lifetimes = np.zeros(0, dtype=np.int32)
         self._np_divisions = np.zeros(0, dtype=np.int32)
+        # bumped by the host mutators that replace no array object (the
+        # lifetime and division writes, a backend switch): every other
+        # mutator replaces an object the stepper's flush token compares by
+        # identity or writes parameter rows (``Kinetics._param_epoch``), so
+        # together they let a re-attach after a flush prove that nothing
+        # touched the world and skip the host-replay rebuild
+        self._host_epoch = 0
 
         # device-side state (+ identity-keyed host snapshot caches)
         self._cell_molecules = torch.zeros(
@@ -438,6 +445,7 @@ class World:
 
     @cell_lifetimes.setter
     def cell_lifetimes(self, value):
+        self._host_epoch += 1
         self._np_lifetimes[: self.n_cells] = np.asarray(value, dtype=np.int32)
 
     @property
@@ -447,6 +455,7 @@ class World:
 
     @cell_divisions.setter
     def cell_divisions(self, value):
+        self._host_epoch += 1
         self._np_divisions[: self.n_cells] = np.asarray(value, dtype=np.int32)
 
     # ------------------------------------------------------------------ #
@@ -1011,6 +1020,7 @@ class World:
 
     def increment_cell_lifetimes(self):
         """Increment ``cell_lifetimes`` by 1"""
+        self._host_epoch += 1
         self._np_lifetimes[: self.n_cells] += 1
 
     # ------------------------------------------------------------------ #
@@ -1170,6 +1180,7 @@ class World:
             self._genomes_list = list(self._genome_store.decoded(self.n_cells))
             self._genome_store = None
         self.genome_backend = backend
+        self._host_epoch += 1
 
     # ------------------------------------------------------------------ #
     # persistence                                                        #
@@ -1211,6 +1222,7 @@ class World:
         self.__dict__.setdefault("genome_backend", "string")
         self.__dict__.setdefault("_genome_store", None)
         self.__dict__.setdefault("_genomes_list", [])
+        self.__dict__.setdefault("_host_epoch", 0)
         if legacy_genomes is not None:
             self._genomes_list = list(legacy_genomes)
         # recorders pickle themselves detached (no file handle survives a

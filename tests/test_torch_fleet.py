@@ -129,10 +129,23 @@ def test_b3_group_matches_jax_fleet_and_solo(det):
     # the chaos counters, as the JAX package's does
     device_us, device_dispatches = census.pop("device_time_us"), census.pop("device_dispatches")
     assert device_us >= 0 and device_dispatches <= n
+    # the compile, build-cache and phenotype counters depend on what this
+    # process ran before (a program shape dispatched once stays warm)
+    assert census.pop("compiles") <= 1
+    for key in ("persistent_cache_hits", "persistent_cache_misses", "phenotype_hits",
+                "phenotype_misses", "phenotype_evictions", "phenotype_pickle_drops"):
+        assert census.pop(key) >= 0
     assert census == {
         "dispatches": n,
         "fused_groups": n,
         "integrator_dispatches_torch-det": n,
+        "restack_full": 1,
+        "restack_inserts": 0,
+        "restack_skipped": 0,
+        "attach_full": 0,
+        "attach_skipped": 0,
+        "genome_decode_calls": 0,
+        "genome_decode_rows": 0,
         "chaos_fired": 0,
         "degraded": 0,
     }

@@ -18,6 +18,10 @@ The port's pipelined stepper against the JAX package's:
 - token worlds (``genome_backend="token"``) at ``megastep`` 1 and 4, det
   mode: bit-equal to the JAX stepper over a token world, the stores'
   tensors included;
+- the fast re-attach after a flush: one full re-attach after a classic
+  mutation, a flush token that holds objects and epochs, and det
+  trajectories with the fast path bit-equal to the full path and to the
+  JAX stepper, with the JAX stepper's attach counts;
 - ``World.step_many`` equals the serial calls, and what is not ported
   (meshes, cross-rung fusion) raises.
 """
@@ -34,10 +38,13 @@ import numpy as np  # noqa: E402
 import pytest  # noqa: E402
 
 import magicsoup_tpu as ms  # noqa: E402
+import torch  # noqa: E402
 import magicsoup_tpu_torch as mt  # noqa: E402
 from magicsoup_tpu import stepper as jstepper  # noqa: E402
+from magicsoup_tpu.analysis import runtime as jrt  # noqa: E402
 from magicsoup_tpu.examples.wood_ljungdahl import CHEMISTRY as JCHEM  # noqa: E402
 from magicsoup_tpu_torch import stepper as tstepper  # noqa: E402
+from magicsoup_tpu_torch.analysis import runtime  # noqa: E402
 from magicsoup_tpu_torch.examples.wood_ljungdahl import CHEMISTRY as TCHEM  # noqa: E402
 from magicsoup_tpu_torch.interop import device_state_from_numpy, load_world_arrays  # noqa: E402
 
@@ -287,6 +294,113 @@ def test_token_flush_drops_refreshes_of_blanked_rows(monkeypatch):
     ts.flush()
     ts.check_consistency()
     assert audit_world(tw) == []
+
+
+def test_pipelined_and_classic_phases_compose(monkeypatch):
+    # a classic-API mutation between a flush and the next step is picked
+    # up by exactly ONE full re-attach; later steps advance the pipeline
+    monkeypatch.setenv("MAGICSOUP_TPU_DETERMINISTIC", "1")
+    w = _world(mt, TCHEM, 23, device="cpu")
+    st = mt.PipelinedStepper(w, **dict(KW, lag=2))
+    for _ in range(3):
+        st.step()
+    st.flush()
+    n_after_flush = w.n_cells
+    w.kill_cells([0])
+    assert w.n_cells == n_after_flush - 1
+    runtime.reset_counters()
+    st.step()
+    assert not st._needs_attach
+    assert (runtime.snapshot()["attach_full"], runtime.snapshot()["attach_skipped"]) == (1, 0)
+    mm_mid = st._state.mm.clone()
+    for _ in range(2):
+        st.step()
+    st.drain()
+    assert not torch.equal(st._state.mm, mm_mid)
+    st.flush()
+    st.check_consistency()
+    assert len(w.cell_genomes) == w.n_cells
+    mm = w._host_molecule_map()
+    assert np.isfinite(mm).all() and (mm >= 0).all()
+    assert runtime.snapshot()["attach_full"] == 1
+
+
+def test_world_token_holds_objects_not_ids(monkeypatch):
+    monkeypatch.setenv("MAGICSOUP_TPU_DETERMINISTIC", "1")
+    w = _world(mt, TCHEM, 11, device="cpu")
+    st = mt.PipelinedStepper(w, **dict(KW, lag=1))
+    st.step()
+    st.flush()
+    token = st._flush_token
+    assert token is not None
+    # strong references to the world's live objects, not id snapshots
+    assert any(part is w.cell_genomes for part in token)
+    assert any(part is w.kinetics.params for part in token)
+    assert st._token_unchanged(token, st._world_token())
+    # an equal-valued replacement is a mutation
+    w.cell_genomes = list(w.cell_genomes)
+    assert not st._token_unchanged(token, st._world_token())
+    st.step()
+    st.flush()
+    st.check_consistency()
+    # the in-place mutators the token cannot see by identity bump epochs
+    for mutate in (
+        lambda: setattr(w, "cell_lifetimes", w.cell_lifetimes),
+        lambda: setattr(w, "cell_divisions", w.cell_divisions),
+        w.increment_cell_lifetimes,
+        lambda: w.update_cells([(w.cell_genomes[0], 0)]),
+        lambda: w.kinetics.unset_cell_params([0]),
+        lambda: w.kinetics.copy_cell_params([0], [1]),
+    ):
+        st._flush_token = st._world_token()
+        mutate()
+        assert not st._token_unchanged(st._flush_token, st._world_token())
+
+
+def _reattach_schedule(lib, world, kw, dispatches):
+    """Steps with flushes between them and one classic mutation: the
+    re-attaches after the flushes are fast but the one after the kill."""
+    st = lib.PipelinedStepper(world, **kw)
+    for seg in range(4):
+        if seg == 2:
+            world.kill_cells([0])
+        for _ in range(dispatches):
+            st.step()
+        st.flush()
+    return st
+
+
+@pytest.mark.parametrize(
+    "backend,megastep,dispatches", [("string", 1, 3), ("string", 4, 1), ("token", 1, 3), ("token", 4, 1)]
+)
+def test_fast_reattach_matches_full_reattach_and_jax(monkeypatch, backend, megastep, dispatches):
+    monkeypatch.setenv("MAGICSOUP_TPU_DETERMINISTIC", "1")
+    kw = dict(KW, megastep=megastep)
+    jw = _world(ms, JCHEM, 5, genome_backend=backend)
+    jrt.reset_counters()
+    js = _reattach_schedule(ms, jw, kw, dispatches)
+    jattach = {k: jrt.snapshot()[k] for k in ("attach_full", "attach_skipped")}
+    assert jattach == {"attach_full": 1, "attach_skipped": 2}
+
+    tw = _world(mt, TCHEM, 5, device="cpu", genome_backend=backend)
+    runtime.reset_counters()
+    ts = _reattach_schedule(mt, tw, kw, dispatches)
+    assert {k: runtime.snapshot()[k] for k in ("attach_full", "attach_skipped")} == jattach
+
+    # the same schedule with every re-attach forced to the full rebuild
+    full_w = _world(mt, TCHEM, 5, device="cpu", genome_backend=backend)
+    monkeypatch.setattr(mt.PipelinedStepper, "_token_unchanged", staticmethod(lambda a, b: False))
+    runtime.reset_counters()
+    full = _reattach_schedule(mt, full_w, kw, dispatches)
+    assert (runtime.snapshot()["attach_full"], runtime.snapshot()["attach_skipped"]) == (3, 0)
+
+    assert ts.stats["divisions"] > 0 and ts.stats["kills"] > 0
+    for other, stats in ((jw, js.stats), (full_w, full.stats)):
+        assert {k: ts.stats[k] for k in STAT_KEYS} == {k: stats[k] for k in STAT_KEYS}
+        _assert_same_world(other, tw)
+        assert np.array_equal(np.asarray(other.cell_molecules), tw.cell_molecules)
+        mm = other.molecule_map
+        assert np.array_equal(np.asarray(mm) if other is jw else mm.numpy(), tw.molecule_map.numpy())
 
 
 def test_world_step_many_matches_serial_calls(monkeypatch):
