@@ -90,17 +90,17 @@ Smoke run of the PyTorch/CUDA port on one CUDA card:
     chained ``cuda`` step;
 13. deterministic mode on the card against the CPU, as
     ``scripts/bitrepro.py`` checks it: the workload step of 5 at 500
-    cells, a 64x64 map, 300-bp genomes, seed 7, 20 steps on
+    cells, a 64x64 map, 300-bp genomes, seed 7, 10 steps on
     ``device="cpu"`` and on ``"cuda"`` in lockstep with
     ``MAGICSOUP_TPU_DETERMINISTIC=1``, every piece of state hashed after
     every step; then the pipelined stepper at K = 1 for 10 dispatches on
     both devices, with the arguments of the CPU parity tests, compared
     after ``flush()``; the first divergent (step, tensor), with its
-    largest absolute and ULP difference, fails the run.  The 20 steps also
+    largest absolute and ULP difference, fails the run.  The 10 steps also
     run on the CPU without the flush-to-zero bit (the card keeps
     subnormals as that run does), and whether and where its bits first
     differ from the flushed CPU run's is recorded.  Then a token world
-    (``genome_backend="token"``) runs the same 20 steps on both devices,
+    (``genome_backend="token"``) runs the same 10 steps on both devices,
     each step followed by ``recombinate_cells(p=1e-5)`` and
     ``mutate_cells(p=1e-4)`` so that the token programs change genomes,
     with the store's tokens and lengths among the hashed state;
@@ -260,11 +260,38 @@ Smoke run of the PyTorch/CUDA port on one CUDA card:
     with digests bit-equal to the baseline's; the baseline's final
     checkpoints restored onto the CPU give the same ``state_digest``s,
     and its tenant digests the same, as the schedule run in process on
-    the CPU.
+    the CPU;
+25. meshes (``magicsoup_tpu_torch.parallel``): rank processes started by
+    the run (``parallel.launch.RankPool``, every wait bounded) share the
+    card.  (a) Two ranks over gloo, deterministic mode, at phase 13's
+    500 cells on 64²: 10 classic workload steps and the stepper at K = 1
+    (6 dispatches) and K = 4 (2), each final ``state_digest`` equal to
+    the same run on one device on the card and on the CPU.  (b) The
+    differential paths ``mesh2`` and ``token_mesh2`` ran in phase 21
+    against the golden files and the CPU.  (c) The headline world over
+    two ranks in fast mode (10,000 cells of 500 bp on 128², 64 map rows
+    and 8192 of the 16384 slots per rank, seed 42): the first step's
+    integrator output of each rank's slot block against the same world's
+    on one device, every row bit-equal (the real-state contract read
+    beside it); 20 classic steps, one
+    K1 launch per rank per step; 60 stepper dispatches at K = 1 after 3
+    warm-up ones, one launch per rank per step, every record's tile
+    lanes summing to ``n_occupied``, no flag but ``dead_param_residue``;
+    finite, >= 0 state; steps/s, collectives and bytes per step, host ms
+    in collectives and each rank's peak memory.  (d) The world-sharded
+    fleet: 4 worlds of one group over the two ranks, 10 fleet steps of
+    ``fleet.sharding.sharded_fleet_step`` (its integrator left to the
+    default) beside the unsharded group program, in fast mode (one K2
+    launch per rank per fleet step) and in deterministic mode at 500
+    cells, every leaf bit-equal (in fast mode the state and parameters,
+    the records' mass lanes may differ).  (e) A one-rank NCCL mesh: a
+    probe of the backend, then (a)'s runs, bit-equal to the single-device
+    ones.  A ``{"meshes": ...}`` line; the mesh
+    launches join the K1, K2 and threefry entries.
 
 Phases 10, 11 and 14 run right after the build, 15 after 5, 19 and 20
 after 5 and after 15, 16 and 17 after 7, 12, 18, 13 and 21 after 9, 22,
-23 and 24 last.
+23, 24 and 25 last.
 
 With ``--parent DIR`` the run also builds an earlier version of the
 integrator kernel from DIR (its ``magicsoup_tpu_torch/ops/
@@ -282,7 +309,8 @@ a ``{"token_workload": ...}`` line, ``{"persistence": ...}`` and
 ``{"genome_ops": ...}`` line, the flags per window, the seeded and real-state
 K2 lines, the digests, sweep, ladder, microbenchmark and det lines, a
 ``{"differential": ...}`` line, a ``{"guard": ...}`` line, a
-``{"fused_fleet": ...}`` line, a ``{"serve": ...}`` line, the whole run's
+``{"fused_fleet": ...}`` line, a ``{"serve": ...}`` line, a
+``{"meshes": ...}`` line, the whole run's
 seconds, a ``{"kernels": [...]}`` line (K1, K2, the grouped launch, K3,
 threefry), the card's name and power limit, and as its
 last line ``{"ok": true, "device": {...}}``.  Any failure raises, and the
@@ -354,8 +382,9 @@ PARENT = None
 LADDER_SHAPES = ((256, 8, 12), (10240, 32, 28))
 #: the microbenchmark's points
 BENCH_POINTS = (("cuda", 1), ("cuda", 4), ("torch-fast", 1))
-#: det mode on the card: scripts/bitrepro.py's defaults
-DET_STEPS = 20
+#: det mode on the card: scripts/bitrepro.py's defaults, the steps cut
+#: from its 20 to 10 to keep the whole run within half its time limit
+DET_STEPS = 10
 DET_CELLS = 500
 DET_MAP = 64
 DET_GENOME = 300
@@ -1073,11 +1102,11 @@ class _Taps:
         on_invariant = PipelinedStepper.__dict__["_handle_invariant"]
         on_sentinel = PipelinedStepper.__dict__["_handle_sentinel"]
 
-        def tapped_integrate(name, X, params):
+        def tapped_integrate(name, X, params, mesh=None):
             if taps._armed and X.ndim == 3:
                 taps._armed = False
                 taps.inputs = (X.clone(), CellParams(*(t.clone() for t in params)))
-            return integrate(name, X, params)
+            return integrate(name, X, params, mesh)
 
         def tapped_invariant(stepper, out):
             taps._tally("invariant", decode_invariants(out.invariants))
@@ -1925,14 +1954,21 @@ def _differential(torch) -> dict:
                   digest_fn=_both_digests)
         for path in paths:
             ci.launches = ci.grouped_launches = cuda_prng.launches = 0
+            # a mesh path's ranks are child processes: their digests come
+            # back by name, without the arrays of a divergence report
+            mesh_kw = dict(kw, digest_fn=differential.both_digests)
+            pkw = mesh_kw if path in differential.MESH_PATHS else kw
             t0 = time.perf_counter()
-            card = differential.run_path(path, device="cuda", **kw)
+            card = differential.run_path(path, device="cuda", **pkw)
             out["seconds"]["cuda"] += time.perf_counter() - t0
             out["launches"][f"{path}/seed{rec['seed']}"] = {
                 "k1_k2": ci.launches, "grouped": ci.grouped_launches,
                 "threefry": cuda_prng.launches}
             t0 = time.perf_counter()
-            cpu = differential.run_path(path, device="cpu", **kw)
+            cpu = differential.run_path(path, device="cpu", **pkw)
+            if path in differential.MESH_PATHS:
+                card = [(a, b, None) for a, b in card]
+                cpu = [(a, b, None) for a, b in cpu]
             out["seconds"]["cpu"] += time.perf_counter() - t0
             got = [d[0] for d in card]
             states[path, rec["seed"]] = [d[1] for d in card]
@@ -1944,16 +1980,18 @@ def _differential(torch) -> dict:
                                      f" structural digests differ from {name} at {at}")
             for b, c, h in zip(differential.BOUNDARIES, card, cpu):
                 if c[1] != h[1]:
+                    where = _first_divergence(h[2], c[2]) if c[2] is not None else path
                     raise AssertionError(
                         f"differential {path}, seed {rec['seed']}: the card's state digest"
-                        f" differs from the CPU's at {b}: {_first_divergence(h[2], c[2])}")
+                        f" differs from the CPU's at {b}: {where}")
     # the fused paths: fused2 against its own golden file, and each equal
     # to its solo path's full digests at every boundary on the card
     rec = json.loads((GOLDEN_DIR / DIFF_FUSED_GOLDEN).read_text())
     if structural["fused2", rec["seed"]] != rec["structural_digests"]:
         raise AssertionError(f"differential fused2 on the card differs from {DIFF_FUSED_GOLDEN}")
     for (path, seed), digests in states.items():
-        solo = {"fused2": "k1", "fused_fleet": "k4"}.get(path)
+        solo = {"fused2": "k1", "fused_fleet": "k4", "mesh2": "k1",
+                "token_mesh2": "token_k1"}.get(path)
         if solo is not None and digests != states[solo, seed]:
             at = [b for b, x, y in zip(differential.BOUNDARIES, digests, states[solo, seed]) if x != y]
             raise AssertionError(f"differential {path}, seed {seed}: differs from {solo} at {at}")
@@ -1969,6 +2007,7 @@ def _differential(torch) -> dict:
                              f" {ci.launches} K2 launches in {steps} steps")
     out["golden_equal"] = len(DIFF_GOLDEN) * len(paths) + 2
     out["fused_equal_solo"] = 2 * len(DIFF_GOLDEN)
+    out["mesh_equal_solo"] = len(differential.MESH_PATHS) * len(DIFF_GOLDEN)
     out["state_digests_card_equal_cpu"] = len(DIFF_GOLDEN) * len(paths)
     return out
 
@@ -3859,6 +3898,178 @@ def _serve_phase(torch, fleet_world_steps_per_s: float) -> tuple[dict, dict]:
     return record, {"k2": k2_launches, "grouped": grouped_launches}
 
 
+MESH_DEVICE = "cuda"
+#: the seeded mesh runs the rank processes call (``torch_mesh_runs``,
+#: shared with the tests), put on the ranks' and this process's path
+MESH_RUNS_DIR = str(ROOT / "tests")
+MESH_TIMEOUT = 120.0
+MESH_DET_STEPS = 10
+MESH_DET_DISPATCHES = {1: 6, 4: 2}
+MESH_CLASSIC_STEPS = 20
+MESH_STEPPER_STEPS = 60
+MESH_FLEET = dict(seeds=[42, 43, 44, 45], steps=10, map_size=64, n_cells=500, genome_size=300)
+
+
+def _contract_shares(out, ref) -> dict:
+    """The real-state contract's shares of ``out`` against ``ref`` (rows
+    are cells): finite and >= 0, the share within 1e-4 relative, within
+    0.01 of the cell's largest value, the largest cell error, and the
+    share of rows bit-equal."""
+    import numpy as np
+
+    rel = np.abs(out - ref) / (np.abs(ref) + 1e-6)
+    scale = np.maximum(np.abs(ref).max(axis=1), 1e-6)
+    norm = np.abs(out - ref).max(axis=1) / scale
+    return {
+        "finite_nonneg": bool(np.isfinite(out).all() and (out >= 0).all()),
+        "cells_within_1e-4": float((rel.max(axis=1) < 1e-4).mean()),
+        "cells_within_0.01": float((norm < 0.01).mean()),
+        "max_cell_err": float(norm.max()),
+        "max_abs_err": float(np.abs(out - ref).max()),
+        "rows_bit_equal": float((out == ref).all(axis=1).mean()),
+    }
+
+
+def _mesh_runs():
+    if MESH_RUNS_DIR not in sys.path:
+        sys.path.insert(0, MESH_RUNS_DIR)
+    import torch_mesh_runs
+
+    return torch_mesh_runs
+
+
+def _mesh_det_args() -> dict:
+    det_kw = dict(seed=DET_SEED, map_size=DET_MAP, n_cells=DET_CELLS, genome_size=DET_GENOME)
+    det_stepper = dict(STEPPER_KW, target_cells=DET_CELLS, genome_size=DET_GENOME)
+    return dict(steps=MESH_DET_STEPS, stepper_dispatches=MESH_DET_DISPATCHES,
+                stepper_kw=det_stepper, **det_kw)
+
+
+def _mesh_same(ref: dict, got: dict, label: str) -> None:
+    """Every final digest of a mesh's det runs equal to one device's on
+    the card and on the CPU."""
+    for path, want in ref[MESH_DEVICE].items():
+        if got[path]["digest"] != want["digest"] or want["digest"] != ref["cpu"][path]["digest"]:
+            raise AssertionError(f"meshes {label}: {path} differs from one device"
+                                 f" (card {want['digest'][:12]}, cpu"
+                                 f" {ref['cpu'][path]['digest'][:12]}, mesh"
+                                 f" {got[path]['digest'][:12]})")
+
+
+def _mesh_det_gloo(pool, ref: dict) -> dict:
+    """25 (a): deterministic mode over two ranks sharing the card."""
+    got = pool.run("torch_mesh_runs:det_paths", **_mesh_det_args())
+    if any(got[0][path]["digest"] != got[1][path]["digest"] for path in got[0]):
+        raise AssertionError("meshes (a): the ranks disagree")
+    _mesh_same(ref, got[0], "(a) gloo x2")
+    return {path: {k: v for k, v in r.items() if k != "digest"} for path, r in got[0].items()}
+
+
+def _mesh_headline(pool) -> dict:
+    """25 (c): the headline world over two ranks, fast mode."""
+    import numpy as np
+
+    from magicsoup_tpu_torch.ops import backends
+
+    runs = _mesh_runs()
+    kw = dict(seed=SEED, map_size=MAP_SIZE, n_cells=N_CELLS, genome_size=GENOME_SIZE,
+              classic_steps=MESH_CLASSIC_STEPS, stepper_steps=MESH_STEPPER_STEPS,
+              stepper_kw=dict(STEPPER_KW, megastep=1), warmup=STEPPER_WARMUP)
+    head = pool.run("torch_mesh_runs:headline_mesh", **kw)
+    one = runs.make_world(None, seed=SEED, map_size=MAP_SIZE, n_cells=N_CELLS,
+                          genome_size=GENOME_SIZE, det=False, device=MESH_DEVICE)
+    X0, params = one.integrator_inputs()
+    ref_X1 = backends.integrate(one.integrator, X0, params).cpu().numpy()[:N_CELLS]
+    del one, X0, params
+    mesh_X1 = np.concatenate([r.pop("first_X1") for r in head])[:N_CELLS]
+    first = _contract_shares(mesh_X1, ref_X1)
+    # each rank runs the same kernel on the same 8-cell tiles as one
+    # device (a rank's block is a multiple of 8), so every row is
+    # bit-equal; the real-state contract is read beside it
+    if not (first["rows_bit_equal"] == 1.0 and first["finite_nonneg"]
+            and first["cells_within_1e-4"] >= 0.85 and first["cells_within_0.01"] >= 0.98
+            and first["max_cell_err"] < 0.25):
+        raise AssertionError(f"meshes (c): the first integrator output: {first}")
+    for rank, r in enumerate(head):
+        for name in ("classic", "stepper"):
+            w = r[name]
+            if w["k1_k2"] != w["steps"]:
+                raise AssertionError(f"meshes (c) rank {rank}: {w['k1_k2']} kernel launches"
+                                     f" in {w['steps']} {name} steps")
+            if not w["finite_nonneg"]:
+                raise AssertionError(f"meshes (c) rank {rank}: {name} state not finite, >= 0")
+            w["steps_per_s"] = w["steps"] / w["seconds"]
+            w["collectives_per_step"] = w["collectives"] / w["steps"]
+            w["collective_bytes_per_step"] = w["collective_bytes"] / w["steps"]
+            w["collective_host_ms_per_step"] = w["collective_us"] / 1e3 / w["steps"]
+        bad = sorted(set(r["stepper"]["flags"]) - {"invariant:dead_param_residue"})
+        if bad or r["stepper"]["tile_records"]["mismatch"]:
+            raise AssertionError(f"meshes (c) rank {rank}: flags {bad}, tile lanes"
+                                 f" {r['stepper']['tile_records']}")
+    return {"first_step_X1": first, "ranks": head}
+
+
+def _mesh_fleet(pool) -> dict:
+    """25 (d): the world-sharded fleet: one K2 launch per rank per fleet
+    step in fast mode, every leaf bit-equal to the unsharded group in
+    deterministic mode; in fast mode the state and parameters bit-equal
+    too, only the records' mass lanes may differ (a reduction over a
+    world's rows may take another order at another group size)."""
+    fleet = {}
+    for mode, det in (("fast", False), ("det", True)):
+        # the sharded step left to its default integrator: ``cuda`` on the
+        # card in fast mode (its K2 launches counted), ``torch-det`` in det
+        got = pool.run("torch_mesh_runs:fleet_sharding", det=det, default_integrator=True,
+                       **MESH_FLEET)
+        for rank, r in enumerate(got):
+            if det and not r["equal"]:
+                raise AssertionError(f"meshes (d) det, rank {rank}: {r['differ']} differ")
+            if not set(r["differ"]) <= {"records"}:
+                raise AssertionError(f"meshes (d) {mode}, rank {rank}: {r['differ']} differ")
+            if not det and r["launches"] != MESH_FLEET["steps"]:
+                raise AssertionError(f"meshes (d) rank {rank}: {r['launches']} K2 launches"
+                                     f" in {MESH_FLEET['steps']} fleet steps")
+        fleet[mode] = got
+    return fleet
+
+
+def _mesh_nccl(ref: dict) -> dict:
+    """25 (e): a one-rank NCCL mesh, bit-equal to one device."""
+    from magicsoup_tpu_torch.parallel.launch import RankPool
+
+    t0 = time.perf_counter()
+    with RankPool(1, backend="nccl", device=MESH_DEVICE, timeout=MESH_TIMEOUT,
+                  env={"PYTHONPATH": MESH_RUNS_DIR}) as pool:
+        probe = pool.run("torch_mesh_runs:backend_probe")[0]
+        got = pool.run("torch_mesh_runs:det_paths", **_mesh_det_args())[0]
+    _mesh_same(ref, got, "(e) nccl x1")
+    return {"probe": probe, "seconds": time.perf_counter() - t0,
+            **{path: {k: v for k, v in r.items() if k != "digest"} for path, r in got.items()}}
+
+
+def _mesh_phase(torch) -> dict:
+    """Phase 25: meshes of rank processes sharing the card (module notes,
+    25 a-e)."""
+    from magicsoup_tpu_torch.parallel.launch import RankPool
+
+    runs = _mesh_runs()
+    t_phase = time.perf_counter()
+    ref = {dev: runs.det_paths(None, device=dev, **_mesh_det_args()) for dev in (MESH_DEVICE, "cpu")}
+    out = {}
+    t0 = time.perf_counter()
+    with RankPool(2, backend="gloo", device=MESH_DEVICE, timeout=MESH_TIMEOUT,
+                  env={"PYTHONPATH": MESH_RUNS_DIR}) as pool:
+        out["gloo_start_s"] = time.perf_counter() - t0
+        out["det_gloo"] = _mesh_det_gloo(pool, ref)
+        out["headline"] = _mesh_headline(pool)
+        out["sharded_fleet"] = _mesh_fleet(pool)
+        out["gloo_s"] = time.perf_counter() - t0
+    out["nccl"] = _mesh_nccl(ref)
+    out["det_equal_one_device"] = 2 * len(ref["cpu"])
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
 def main() -> None:
     global DUMP_DIR, PARENT
     import argparse
@@ -4000,6 +4211,14 @@ def main() -> None:
     print(json.dumps({"serve": serve}))
     k2["serve_launches"] = serve_launches["k2"]
     grouped["serve_launches"] = serve_launches["grouped"]
+    meshes = _mesh_phase(torch)
+    print(json.dumps({"meshes": meshes}))
+    head = meshes["headline"]["ranks"]
+    kernel["mesh_launches"] = {"classic_per_rank": [r["classic"]["k1_k2"] for r in head]}
+    k2["mesh_launches"] = {
+        "stepper_per_rank": [r["stepper"]["k1_k2"] for r in head],
+        "sharded_fleet_per_rank": [r["launches"] for r in meshes["sharded_fleet"]["fast"]],
+    }
 
     from magicsoup_tpu_torch.performance import card_line
 
@@ -4013,6 +4232,9 @@ def main() -> None:
         "guard_recorder_windows": guard_launches["threefry_recorder_windows"],
         "guard_resume_cases": guard_launches["threefry_resume_cases_parent"],
         "mixed_fleet": fleet_phase["mixed_fleet"]["threefry_launches"],
+        "mesh_headline_per_rank": [r["classic"]["threefry"] + r["stepper"]["threefry"]
+                                   for r in head],
+        "mesh_det_gloo_rank0": sum(v["threefry"] for v in meshes["det_gloo"].values()),
     }
     print(json.dumps({"run": {"wall_s": time.perf_counter() - RUN_T0}}))
     print(json.dumps({"kernels": [kernel, k2, grouped, _k3_entry(ladder),

@@ -10,6 +10,8 @@ integrator runs as a hand-written CUDA kernel there
 :class:`PipelinedStepper` runs the selection workload on the device with
 the host replaying a few steps behind; :class:`FleetScheduler` steps many
 worlds as groups, one batched dispatch per group.
+:mod:`magicsoup_tpu_torch.parallel` places a world over a mesh of ranks
+(``World(mesh=...)``, one process per tile over ``torch.distributed``).
 Genome string work runs in a multithreaded C++ engine (with a pure-Python
 fallback).  The package imports neither JAX nor :mod:`magicsoup_tpu`.
 """

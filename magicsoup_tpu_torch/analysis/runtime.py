@@ -38,6 +38,12 @@ counters rows of a telemetry stream hold every counted failure.
   each) and the bytes they moved, ``genome_length_fetches`` /
   ``genome_length_fetch_bytes`` the fetches of a store's length vector
   alone (``GenomeStore.host_lengths``, the token step row's);
+- in :func:`collective_stats`, ``collectives`` / ``collective_bytes`` /
+  ``collective_us`` count the process-group collectives of a mesh
+  (``parallel.tiled.Mesh``): calls, the bytes each call delivered to this
+  rank, and the host microseconds spent inside them (staging through host memory included on the gloo
+  route) — the port's counterpart of the collective census the JAX
+  package reads off its compiled step programs;
 - in :func:`phenotype_cache_stats`, ``pickle_drops`` counts the entries
   that phenotype caches dropped when they were pickled (a world saved
   and restored starts with an empty cache, so its first step translates
@@ -70,6 +76,9 @@ _genome_fetch_bytes = 0
 _genome_length_fetches = 0
 _genome_length_fetch_bytes = 0
 _pheno_pickle_drops = 0
+_collectives = 0
+_collective_bytes = 0
+_collective_us = 0
 
 
 def compile_count() -> int:
@@ -140,6 +149,26 @@ def note_dispatch(dispatches: int = 0, fused_groups: int = 0) -> None:
     with _lock:
         _dispatches += dispatches
         _fused_groups += fused_groups
+
+
+def note_collective(nbytes: int, seconds: float) -> None:
+    """Count one collective of a mesh that delivered ``nbytes`` to this
+    rank in ``seconds`` of host time."""
+    global _collectives, _collective_bytes, _collective_us
+    with _lock:
+        _collectives += 1
+        _collective_bytes += int(nbytes)
+        _collective_us += int(seconds * 1e6)
+
+
+def collective_stats() -> dict[str, int]:
+    """The mesh collective counters, read under one lock."""
+    with _lock:
+        return {
+            "collectives": _collectives,
+            "collective_bytes": _collective_bytes,
+            "collective_us": _collective_us,
+        }
 
 
 def note_genome_decode(rows: int = 0) -> None:
@@ -241,6 +270,7 @@ def reset_counters() -> None:
     global _dispatches, _fused_groups, _genome_decode_calls, _genome_decode_rows
     global _genome_fetches, _genome_fetch_bytes, _pheno_pickle_drops
     global _genome_length_fetches, _genome_length_fetch_bytes
+    global _collectives, _collective_bytes, _collective_us
     from magicsoup_tpu_torch.guard import chaos as _chaos
     from magicsoup_tpu_torch.telemetry import metrics as _metrics
 
@@ -257,4 +287,5 @@ def reset_counters() -> None:
         _genome_fetches = _genome_fetch_bytes = 0
         _genome_length_fetches = _genome_length_fetch_bytes = 0
         _pheno_pickle_drops = 0
+        _collectives = _collective_bytes = _collective_us = 0
         _integrator_dispatches.clear()

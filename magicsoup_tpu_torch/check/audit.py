@@ -85,7 +85,7 @@ def audit_world(world, *, sample: int = 8) -> list[InvariantViolation]:
     mm = fetch_host(world._molecule_map)
     cm = fetch_host(world._cell_molecules)
     pos_dev = fetch_host(world._positions_dev)
-    params = type(kin.params)(*(fetch_host(t) for t in kin.params))
+    params = type(kin.params)(*(fetch_host(t) for t in kin.global_params()))
     cap = cm.shape[0]
     m = mm.shape[1]
 

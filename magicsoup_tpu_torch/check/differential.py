@@ -40,8 +40,14 @@ companions sit on a double-size map (another capacity rung), ``block=2``.
 ``fused_fleet`` K=4 under ``fusion="auto"`` with two.  Their digests
 equal the solo paths' at every boundary.
 
-``mesh2`` and ``token_mesh2`` need device meshes (ROADMAP A9); they raise
-``ValueError`` until those are ported.
+The mesh axis (``mesh2``, ``token_mesh2``) drives the K=1 stepper over a
+world placed on a two-rank mesh
+(:mod:`magicsoup_tpu_torch.parallel.tiled`).  The JAX harness runs it in
+its own process over two devices; here the path starts a two-rank
+process group of child processes
+(:class:`~magicsoup_tpu_torch.parallel.launch.RankPool`, gloo, both ranks
+on ``device``), every rank runs the schedule, and rank 0's digests are
+returned.  They equal the solo paths' at every boundary.
 
 Entry points run on ``"cuda"`` unless ``device="cpu"`` is passed.
 """
@@ -51,14 +57,14 @@ import random
 import numpy as np
 
 #: the gated solo execution paths, in report order
-PATHS = ("classic", "k1", "k4")
+PATHS = ("classic", "k1", "k4", "mesh2")
 
 #: a B=1 fleet driven through the FleetScheduler at K=1 / K=4
 FLEET_PATHS = ("fleet1", "fleet4")
 
 #: every path again with device token genomes; ``token_fleet3`` is a B=3
 #: fleet group with two companion token worlds
-TOKEN_PATHS = ("token_classic", "token_k1", "token_k4", "token_fleet3")
+TOKEN_PATHS = ("token_classic", "token_k1", "token_k4", "token_mesh2", "token_fleet3")
 
 #: cross-rung fused dispatch: the schedule world in a mixed-rung fleet
 #: (K=1 ``fusion="fleet"``, K=4 ``fusion="auto"``)
@@ -68,11 +74,11 @@ FUSED_PATHS = ("fused2", "fused_fleet")
 #: package's ``pallas_k1``, held to its golden structural digests
 CUDA_PATHS = ("cuda_k1",)
 
-#: paths of the JAX harness that wait on other parts of the port
-NOT_PORTED = {
-    "mesh2": "A9 (device meshes)",
-    "token_mesh2": "A9 (device meshes)",
-}
+#: the paths on a two-rank mesh (a process group of child processes)
+MESH_PATHS = ("mesh2", "token_mesh2")
+
+#: paths of the JAX harness that wait on other parts of the port: none
+NOT_PORTED: dict[str, str] = {}
 
 #: chem-phase lengths between structural ops; multiples of 4 so the K=4
 #: megastep divides every phase evenly
@@ -150,6 +156,11 @@ def structural_digest(world) -> str:
     hold these digests."""
     n = int(world.n_cells)
     return _digest([("n", np.int64(n).tobytes())] + _structural_parts(world))
+
+
+def both_digests(world) -> tuple[str, str]:
+    """:func:`structural_digest` and :func:`state_digest` of one state."""
+    return structural_digest(world), state_digest(world)
 
 
 def _chem_phase(world, n_steps: int, path: str) -> None:
@@ -236,8 +247,7 @@ def run_path(
     """Drive the seeded schedule through one execution path; returns the
     per-boundary digests.  ``digest_fn`` defaults to :func:`state_digest`;
     the golden-file check passes :func:`structural_digest`.  ``device``
-    ``None`` means ``"cuda"``."""
-    import magicsoup_tpu_torch as mt
+    ``None`` means ``"cuda"``; a mesh path puts both of its ranks there."""
     from magicsoup_tpu_torch.util import resolve_device
 
     if path in NOT_PORTED:
@@ -250,13 +260,45 @@ def run_path(
     device = resolve_device(device, "run_path")
     if digest_fn is None:
         digest_fn = state_digest
+    kw = dict(seed=seed, map_size=map_size, n_cells=n_cells)
+    if path not in MESH_PATHS:
+        return _run_schedule(path, digest_fn=digest_fn, device=device, **kw)
+    from magicsoup_tpu_torch.parallel.launch import RankPool
+
+    # the ranks are other processes: the digest travels by name
+    if getattr(digest_fn, "__module__", None) != __name__:
+        raise ValueError("a mesh path digests with a function of this module only")
+    with RankPool(2, backend="gloo", device=str(device)) as pool:
+        ranks = pool.run(
+            "magicsoup_tpu_torch.check.differential:_mesh_rank",
+            path,
+            digest=digest_fn.__name__,
+            **kw,
+        )
+    if any(r != ranks[0] for r in ranks):
+        raise AssertionError(f"the ranks of {path} disagree: {ranks}")
+    return ranks[0]
+
+
+def _mesh_rank(mesh, path: str, *, digest: str, **kw) -> list[str]:
+    """One rank of a mesh path: the schedule on a world over ``mesh``."""
+    return _run_schedule(path, digest_fn=globals()[digest], device=mesh.device, mesh=mesh, **kw)
+
+
+def _run_schedule(
+    path: str, *, seed: int, map_size: int, n_cells: int, digest_fn, device, mesh=None
+) -> list[str]:
+    """The seeded schedule through one path on ``device`` (or ``mesh``)."""
+    import magicsoup_tpu_torch as mt
+
     world = mt.World(
         chemistry=_chemistry(),
         map_size=map_size,
         seed=seed,
         genome_backend="token" if path.startswith("token_") else "string",
         integrator="cuda" if path in CUDA_PATHS else None,
-        device=device,
+        device=None if mesh is not None else device,
+        mesh=mesh,
     )
     if path not in CUDA_PATHS:
         # the cuda backend is fast mode only; its axis is held by the

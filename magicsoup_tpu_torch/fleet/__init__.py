@@ -12,10 +12,10 @@ Counterpart of :mod:`magicsoup_tpu.fleet`::
 
 Submodules: :mod:`~.batch` (the stacked device program and the fused one),
 :mod:`~.lanes` (per-world steppers), :mod:`~.scheduler` (admission, rungs,
-fusion, dispatch), :mod:`~.persist` (fleet checkpoints) and
+fusion, dispatch), :mod:`~.persist` (fleet checkpoints),
 :mod:`~.warden` (per-world fault isolation, rolling checkpoint streams,
-self-healing).  Sharding the world axis over several devices
-(``magicsoup_tpu.fleet.sharding``) is not ported (ROADMAP A9).
+self-healing) and :mod:`~.sharding` (the world axis over a mesh of ranks:
+more worlds per mesh).
 """
 from magicsoup_tpu_torch.fleet.lanes import FleetLane
 from magicsoup_tpu_torch.fleet.persist import (

@@ -47,7 +47,8 @@ Cross-rung fusion
 The warden (:mod:`magicsoup_tpu_torch.fleet.warden`) binds itself as
 ``_warden``: admissions and retirements are reported to it, and it runs
 its policy at the top of every ``step()``.  Sharding the world axis over
-devices is not ported (ROADMAP A9).
+a mesh of ranks is :mod:`magicsoup_tpu_torch.fleet.sharding`; a fleet
+world itself is single-device (``admit`` refuses a mesh-placed one).
 """
 import threading
 import time
@@ -265,6 +266,11 @@ class FleetScheduler:
     def admit(self, world, **stepper_kwargs) -> FleetLane:
         """Wrap ``world`` in a :class:`FleetLane` and join the fleet;
         placement into a group happens at the next ``step()``."""
+        if getattr(world, "_mesh", None) is not None:
+            raise ValueError(
+                "fleet worlds must be single-device; shard the WORLD axis "
+                "instead (magicsoup_tpu_torch.fleet.sharding)"
+            )
         lane = FleetLane(world, **stepper_kwargs)
         lane._fleet = self
         # the warden readmits a healed world with the same kwargs

@@ -57,6 +57,7 @@ from magicsoup_tpu_torch.analysis import runtime as _runtime
 from magicsoup_tpu_torch.ops import detmath
 from magicsoup_tpu_torch.ops import prng as _prng
 from magicsoup_tpu_torch.ops.params import pad_idxs, pad_pow2
+from magicsoup_tpu_torch.parallel.tiled import sharded_attr
 from magicsoup_tpu_torch.util import fetch_host, resolve_device, restored_device
 
 PAD = 4  # int8 fill value outside a row's live region (never a base)
@@ -502,9 +503,20 @@ class GenomeStore:
     device evolution never decodes and a repeated export decodes once.
     A pickle holds the tensors as host numpy and the device as its
     string; :meth:`place` moves the store to another device.
+
+    Under a ``mesh`` (a mesh-placed World's) each rank holds its slot
+    block of both tensors, and ``tokens`` / ``lengths`` read as the
+    whole store (all-gathered) and keep the rank's block when assigned:
+    the programs run on the gathered store, so every draw keeps the
+    global counter layout of the single-device store, and each rank keeps
+    its block of the result.  A pickle is mesh-free.
     """
 
-    def __init__(self, capacity: int, length_cap: int = _MIN_G, device=None):
+    tokens = sharded_attr("tokens", 0)
+    lengths = sharded_attr("lengths", 0)
+
+    def __init__(self, capacity: int, length_cap: int = _MIN_G, device=None, mesh=None):
+        self._mesh = mesh
         self.device = resolve_device(device, "GenomeStore")
         self.capacity = int(capacity)
         self.length_cap = length_capacity(length_cap)
@@ -522,11 +534,12 @@ class GenomeStore:
         mutator replaces the tensors, never writes into them.  The
         stepper checks out a world's genomes this way."""
         new = GenomeStore.__new__(GenomeStore)
+        new._mesh = self._mesh
         new.device = self.device
         new.capacity = self.capacity
         new.length_cap = self.length_cap
-        new.tokens = self.tokens
-        new.lengths = self.lengths
+        new.__dict__["tokens"] = self.__dict__["tokens"]
+        new.__dict__["lengths"] = self.__dict__["lengths"]
         new.version = 0
         new._decoded = None
         new._host = None
@@ -539,14 +552,15 @@ class GenomeStore:
         """Move the tensors to ``device`` (the cached host views stay
         valid: the contents do not change)."""
         self.device = torch.device(device)
-        self.tokens = self.tokens.to(self.device)
-        self.lengths = self.lengths.to(self.device)
+        for name in ("tokens", "lengths"):
+            self.__dict__[name] = self.__dict__[name].to(self.device)
 
     def __getstate__(self) -> dict:
         state = self.__dict__.copy()
         state["tokens"] = fetch_host(self.tokens)
         state["lengths"] = fetch_host(self.lengths)
         state["device"] = str(self.device)
+        state["_mesh"] = None
         state["_decoded"] = None
         state["_host"] = None
         state["_host_lens"] = None

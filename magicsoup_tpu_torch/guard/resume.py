@@ -30,7 +30,16 @@ source of truth (a token world's store handed back), so no pending
 dispatch is ever serialized.  The world pickles its tensors as host
 numpy and its device as a string; :func:`restore_run` places it on the
 device it is given.
+
+Under a mesh every rank calls :func:`save_run` (the world's pickle
+gathers its blocks, a collective) and rank 0 alone writes the file;
+:func:`restore_run` with ``mesh=`` places the restored world on a mesh
+again, whatever it was saved from.  A det checkpoint restores onto any
+tile count (the sharded det trajectory is the single-device one), so
+:func:`restore_stepper` lets ``n_tiles`` differ in deterministic mode.
 """
+import pickle
+
 import numpy as np
 
 from magicsoup_tpu_torch.guard.checkpoint import CheckpointManager, read_checkpoint
@@ -66,11 +75,11 @@ _CONFIG_FIELDS = (
 
 
 def stepper_config(stepper) -> dict:
-    """The trajectory-determining constructor knobs of a stepper (the
-    port runs on one device, so ``n_tiles`` is always 1)."""
+    """The trajectory-determining constructor knobs of a stepper, with
+    the mesh's tile count (1 on one device)."""
     cfg = {name: getattr(stepper, name) for name in _CONFIG_FIELDS}
     cfg["overlap_evolution"] = stepper._evo_worker is not None
-    cfg["n_tiles"] = 1
+    cfg["n_tiles"] = stepper._n_tiles
     cfg["deterministic"] = bool(stepper.world.deterministic)
     return cfg
 
@@ -119,14 +128,57 @@ def save_run(
 ):
     """Snapshot and write one retained checkpoint; returns its path.
     ``step`` defaults to the stepper's replayed-step counter (or, for a
-    classic run, the number of existing checkpoints)."""
+    classic run, the number of existing checkpoints).  Under a mesh every
+    rank calls it and rank 0 writes; the others return ``None``."""
     payload = snapshot_run(world, stepper)
+    mesh = getattr(world, "_mesh", None)
+    if mesh is not None and mesh.rank != 0:
+        # the pickle all-gathers the world's blocks: every rank takes part
+        pickle.dumps(payload)
+        return None
     if step is None:
         if stepper is not None:
             step = int(stepper.stats["replayed"])
         else:
             step = len(manager.checkpoints())
     return manager.save(payload, step=step, meta=meta)
+
+
+def _remesh_world(world, mesh) -> None:
+    """Place a freshly unpickled world (on ``mesh.device``) over
+    ``mesh``: each rank keeps its blocks of the map, the cell tensors,
+    the parameters and a token store (pickles are mesh-free)."""
+    from magicsoup_tpu_torch.parallel import tiled
+
+    n_tiles = mesh.size
+    if world.map_size % n_tiles != 0:
+        # typed: a restore loop falling back across checkpoints can tell
+        # "this snapshot cannot live on this mesh" from a crash
+        raise CheckpointError(
+            f"map_size={world.map_size} must be divisible by the first"
+            f" mesh axis size {n_tiles} for row sharding",
+            check="config",
+        )
+    if world._capacity % n_tiles != 0:
+        raise CheckpointError(
+            f"restored capacity {world._capacity} does not split across"
+            f" {n_tiles} tiles; checkpoint was taken under a different"
+            " mesh size",
+            check="config",
+        )
+    mm, cm = world._molecule_map, world._cell_molecules
+    world._mesh = mesh
+    world._molecule_map, world._cell_molecules = mm, cm
+    world._mm_cache = None
+    world._cm_cache = None
+    kin = world.kinetics
+    kin.mesh = mesh
+    kin.params = tiled.shard_params(kin.params, mesh)
+    store = world._genome_store
+    if store is not None:
+        tokens, lengths = store.tokens, store.lengths
+        store._mesh = mesh
+        store.tokens, store.lengths = tokens, lengths
 
 
 def restore_run(
@@ -138,7 +190,8 @@ def restore_run(
     verifiable snapshot, walking back over corrupt ones) or the path of
     one ``.msck`` file.  ``device`` is where the world goes: ``None``
     means ``"cuda"``, and without a card that is a ``RuntimeError``
-    naming ``device="cpu"``.  ``mesh`` is not ported (ROADMAP A9).
+    naming ``device="cpu"``.  ``mesh`` places the world over a mesh
+    instead (on ``mesh.device``; every rank restores, collectively).
     ``genome_backend`` continues the run on that genome storage (the
     typed entry for resuming a migrated schema-1 string checkpoint on the
     token backend; the conversion is storage-only).  ``stepper_aux`` is
@@ -153,26 +206,30 @@ def restore_run(
     from magicsoup_tpu_torch.util import resolve_device, restore_device
 
     if mesh is not None:
-        raise ValueError(
-            "restore_run(mesh=...): mesh placement is not ported"
-            " (ROADMAP A9); restore onto one device"
-        )
-    dev = resolve_device(device, "guard.restore_run")
+        if device is not None:
+            raise ValueError("device and mesh are mutually exclusive")
+        dev = mesh.device
+    else:
+        dev = resolve_device(device, "guard.restore_run")
     with restore_device(dev):
         if isinstance(source, CheckpointManager):
             payload, meta, _path = source.load_latest()
         else:
             payload, meta = read_checkpoint(source)
-    world, aux = restore_run_payload(payload, audit=audit, genome_backend=genome_backend)
+    world, aux = restore_run_payload(
+        payload, mesh=mesh, audit=audit, genome_backend=genome_backend
+    )
     return world, aux, meta
 
 
-def restore_run_payload(payload, *, audit: bool = False, genome_backend=None) -> tuple:
+def restore_run_payload(
+    payload, *, mesh=None, audit: bool = False, genome_backend=None
+) -> tuple:
     """Restore one run from an in-memory snapshot payload (the dict
     :func:`snapshot_run` builds, already unpickled onto its device);
     returns ``(world, stepper_aux)``.  The verifying I/O stays with the
     caller, so a format nesting several run payloads in one file can
-    reuse the single-run restore."""
+    reuse the single-run restore.  ``mesh`` places the world over it."""
     if not isinstance(payload, dict) or payload.get("format") != RUN_FORMAT:
         raise CheckpointError(
             f"checkpoint payload is not a {RUN_FORMAT} run snapshot "
@@ -185,6 +242,8 @@ def restore_run_payload(payload, *, audit: bool = False, genome_backend=None) ->
             check="format",
         )
     world = payload["world"]
+    if mesh is not None:
+        _remesh_world(world, mesh)
     if genome_backend is not None:
         if genome_backend not in ("string", "token"):
             raise CheckpointError(
@@ -226,6 +285,12 @@ def restore_stepper(stepper, aux: dict) -> None:
     want = aux["config"]
     have = stepper_config(stepper)
     diff = sorted(k for k in set(want) | set(have) if want.get(k) != have.get(k))
+    # the mesh shape alone does not determine a det trajectory (the
+    # sharded det run is the single-device one), so a det checkpoint
+    # restores onto another tile count; in fast mode the reduction order
+    # follows the shape and the refusal stands
+    if "n_tiles" in diff and want.get("deterministic") and have.get("deterministic"):
+        diff.remove("n_tiles")
     if diff:
         detail = ", ".join(
             f"{k}: checkpoint={want.get(k)!r} != stepper={have.get(k)!r}" for k in diff

@@ -65,7 +65,8 @@ def load_world_arrays(world, arrays: dict) -> None:
     - ``params``: the nine parameter arrays with at least n rows.
 
     The world's capacity and protein capacity grow to fit; rows past n
-    are zeroed.
+    are zeroed.  A mesh-placed world takes the same arrays on every rank,
+    and each rank keeps its blocks.
     """
     n = len(arrays["cell_genomes"])
     world.kill_cells()
@@ -97,9 +98,12 @@ def load_world_arrays(world, arrays: dict) -> None:
     kin = world.kinetics
     kin.ensure_capacity(n_cells=cap, n_proteins=src.Ke.shape[1])
     p = src.Ke.shape[1]
+    # a mesh-placed world: each rank takes the rows of its slot block
+    lo, hi = (0, cap) if world._mesh is None else world._mesh.block(cap)
+    k = max(min(n, hi) - lo, 0)
     for dst, s in zip(kin.params, src):
         dst.zero_()
-        dst[:n, :p] = s
+        dst[:k, :p] = s[lo : lo + k]
 
 
 _STATE_DTYPES = {

@@ -9,7 +9,10 @@ i16 — and the same seeded token->parameter sampling (the factories below
 are the JAX package's numpy code), so one seed gives the same tables.
 
 The tensors live on ``device`` at slot capacity; dead slots are all-zero
-rows and inert.  Parameter assembly groups cells by their rung (the pow2
+rows and inert.  Under a mesh (``mesh``, set by a mesh-placed World) each
+rank holds its slot block of every tensor, through capacity growth too;
+the methods take global slot indices and write the rows the rank owns,
+and :meth:`global_params` all-gathers the whole tensors.  Parameter assembly groups cells by their rung (the pow2
 of their own protein count and domains per protein) and assembles each
 group at that rung, as the JAX package does, writing rows in place.
 """
@@ -28,6 +31,7 @@ from magicsoup_tpu_torch.ops.integrate import (
     CellParams,
     default_deterministic,
 )
+from magicsoup_tpu_torch.parallel import tiled as _tiled
 from magicsoup_tpu_torch.ops.params import (
     IDX_BLOCK,
     RUNG_D_MIN,
@@ -377,6 +381,7 @@ class Kinetics:
         self.max_cells = 0
         self.max_proteins = 0
         self.max_doms = 1
+        self.mesh = None
         self.params = self._alloc(0, 0)
         # bumped by every in-place write into ``params`` rows (the JAX
         # package replaces its arrays instead): the stepper's flush token
@@ -390,6 +395,8 @@ class Kinetics:
 
     def _alloc(self, c: int, p: int) -> CellParams:
         s = self.n_signals
+        if self.mesh is not None:
+            c = c // self.mesh.size
 
         def f32(*shape):
             return torch.zeros(shape, dtype=torch.float32, device=self.device)
@@ -415,7 +422,11 @@ class Kinetics:
         new = self._alloc(c, p)
         oc, op = old.Ke.shape
         for o, n in zip(old, new):
-            n[:oc, :op] = o
+            if self.mesh is not None and c != self.max_cells:
+                # the block boundaries move with the capacity
+                n[:, :op] = _tiled.grow_rows(self.mesh, o, c)
+            else:
+                n[:oc, :op] = o
         self.params = new
         self.max_cells = c
         self.max_proteins = p
@@ -577,6 +588,9 @@ class Kinetics:
         """Assemble one packed token batch into parameter rows, in chunks
         that bound the (b, p, d, s) assembly temporaries."""
         cell_idxs = np.asarray(cell_idxs, dtype=np.int64)
+        if self.mesh is not None:
+            cell_idxs, sel = self._owned(cell_idxs)
+            dense = dense[sel]
         b = len(cell_idxs)
         if b == 0:
             return
@@ -604,6 +618,8 @@ class Kinetics:
     def unset_cell_params(self, cell_idxs: np.ndarray | list[int]):
         """Zero the parameter rows of the given cell slots"""
         cell_idxs = np.asarray(cell_idxs, dtype=np.int64)
+        if self.mesh is not None:
+            cell_idxs, _ = self._owned(cell_idxs)
         if len(cell_idxs) == 0:
             return
         self._param_epoch += 1
@@ -618,6 +634,16 @@ class Kinetics:
         if len(from_idxs) == 0:
             return
         self._param_epoch += 1
+        if self.mesh is not None:
+            # a parent's row may live on another rank: gather the source
+            # rows, write the destinations this rank owns
+            src = torch.from_numpy(from_idxs).to(self.device)
+            dst, sel = self._owned(to_idxs)
+            dst_t = torch.from_numpy(dst).to(self.device)
+            sel_t = torch.from_numpy(np.nonzero(sel)[0]).to(self.device)
+            for t in self.params:
+                t[dst_t] = _tiled.gather_rows(self.mesh, t, src)[sel_t]
+            return
         copy_rows(
             self.params,
             torch.from_numpy(from_idxs).to(self.device),
@@ -626,6 +652,9 @@ class Kinetics:
 
     def permute_cells(self, perm: np.ndarray, n_keep: int):
         """Gather slot rows by a full-capacity permutation; zero the tail"""
+        if self.mesh is not None:
+            self.params = permute_params(self.params, perm, n_keep, mesh=self.mesh)
+            return
         perm_t = torch.from_numpy(np.asarray(perm, dtype=np.int64)).to(self.device)
         self.params = permute_params(self.params, perm_t, n_keep)
 
@@ -656,7 +685,25 @@ class Kinetics:
             deterministic=default_deterministic(), device_type=self.device.type
         )
         X = torch.as_tensor(X, dtype=torch.float32).to(self.device)
+        if self.mesh is not None:
+            out = _backends.integrate(name, self.mesh.local(X, 0), self.params, mesh=self.mesh)
+            return self.mesh.all_gather(out, 0)
         return _backends.integrate(name, X, self.params)
+
+    def _owned(self, cell_idxs: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+        """The global slots this rank owns, as local rows, and their
+        selection mask over ``cell_idxs``."""
+        lo, hi = self.mesh.block(self.max_cells)
+        cell_idxs = np.asarray(cell_idxs, dtype=np.int64)
+        sel = (cell_idxs >= lo) & (cell_idxs < hi)
+        return cell_idxs[sel] - lo, sel
+
+    def global_params(self) -> CellParams:
+        """The whole parameter tensors (all-gathered under a mesh; the
+        rank's own tensors without one)."""
+        if self.mesh is None:
+            return self.params
+        return CellParams(*(self.mesh.all_gather(t, 0) for t in self.params))
 
     # ------------------------------------------------------------------ #
     # pickling                                                           #
@@ -667,7 +714,9 @@ class Kinetics:
         pickle holds no torch storage and loads without the device it was
         saved from."""
         state = self.__dict__.copy()
-        state["params"] = CellParams(*(fetch_host(t) for t in self.params))
+        state["params"] = CellParams(*(fetch_host(t) for t in self.global_params()))
+        # a mesh is bound to a live process group: a pickle is mesh-free
+        state["mesh"] = None
         state["tables"] = TokenTables(*(fetch_host(t) for t in self.tables))
         state["_abs_temp_t"] = fetch_host(self._abs_temp_t)
         state["device"] = str(self.device)
@@ -676,6 +725,7 @@ class Kinetics:
     def __setstate__(self, state: dict):
         self.__dict__.update(state)
         self.__dict__.setdefault("_param_epoch", 0)
+        self.__dict__.setdefault("mesh", None)
         dev = restored_device(state["device"], "Kinetics")
         self.device = dev
         self.params = CellParams(*(torch.from_numpy(a).to(dev) for a in state["params"]))

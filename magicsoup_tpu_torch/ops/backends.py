@@ -21,6 +21,15 @@ backends:
 ``integrator`` argument, then the ``MAGICSOUP_TPU_TORCH_INTEGRATOR`` env
 var, then the numeric mode and the device (``torch-det`` when
 deterministic; else ``cuda`` on a CUDA device, ``torch-fast`` on the CPU).
+
+Every backend serves a mesh-placed world: each rank integrates its own
+slot block, the ``cuda`` kernel with its per-tile early stop (a tile of 8
+cells never straddles two ranks where a rank's block is a multiple of 8)
+and the torch bodies with their batch-global stop summed over the ranks
+(``integrate(..., mesh=)``).  The JAX package refuses ``pallas`` on a mesh
+because a ``pallas_call`` has no SPMD partitioning rule; a rank's own
+launch has no such limit, so the port keeps ``cuda`` as a card's default
+on a mesh too.
 """
 
 import os
@@ -100,21 +109,28 @@ def resolve(
     return backend.name, True
 
 
-def integrate(name: str, X, params):
+def integrate(name: str, X, params, mesh=None):
     """Dispatch one integrator step through backend ``name``.  ``X`` is
     ``(B, c, s)`` for B worlds, every parameter carrying the same leading
     world axis: ``cuda`` runs one kernel launch for all B worlds,
     ``torch-fast`` and ``torch-det`` their body per world (the early stop
     never spans two worlds).  ``X`` ``(c, s)`` is one world, run as
-    ``B = 1``."""
+    ``B = 1``.  Under a ``mesh`` the rows are this rank's slot block: the
+    torch bodies sum their stop count over the ranks."""
     if X.ndim == 2:
-        return integrate(name, X[None], CellParams(*(t[None] for t in params)))[0]
+        Xb, pb = X[None], CellParams(*(t[None] for t in params))
+        return (integrate(name, Xb, pb) if mesh is None else integrate(name, Xb, pb, mesh))[0]
     backend = get_backend(name)
     if backend.name == "cuda":
         return integrate_signals_cuda(X, params)
-    if X.shape[1] == 0:
+    if X.shape[1] == 0 and mesh is None:
         return X.clone()
-    return _integrate_body(X, params, det=backend.name == "torch-det")
+    return _integrate_body(
+        X,
+        params,
+        det=backend.name == "torch-det",
+        stop_reduce=None if mesh is None or mesh.size == 1 else mesh.all_reduce,
+    )
 
 
 def integrate_grouped(names, Xs, params_list) -> list:

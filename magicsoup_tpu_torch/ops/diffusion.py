@@ -67,13 +67,19 @@ def stencil_3x3(map_: torch.Tensor, kernels: torch.Tensor) -> torch.Tensor:
 
 
 def diffuse(
-    molecule_map: torch.Tensor, kernels: torch.Tensor, det: bool = False
+    molecule_map: torch.Tensor, kernels: torch.Tensor, det: bool = False, mesh=None
 ) -> torch.Tensor:
     """
     One diffusion step: the stencil for every molecule channel at once,
     then the mass-conservation fixup (rounding errors spread over all
-    pixels) and a clamp at zero.
+    pixels) and a clamp at zero.  Under a ``mesh`` ``molecule_map`` is
+    this rank's row block and the step is
+    :func:`magicsoup_tpu_torch.parallel.tiled.halo_diffuse`.
     """
+    if mesh is not None:
+        from magicsoup_tpu_torch.parallel.tiled import halo_diffuse
+
+        return halo_diffuse(molecule_map, kernels, mesh, det=det)
     m = molecule_map.shape[1]
     with flush_denormal(molecule_map.device) if det else nullcontext():
         # f64 totals in BOTH modes: the fixup is a small difference of

@@ -202,10 +202,12 @@ def _weighted_dx(X0, N, W, det: bool) -> torch.Tensor:
     return X0 + _sum_p(N.to(torch.float32) * W.unsqueeze(-1), det)
 
 
-def _equilibrium_adjusted_x(X0, X1, N, W, V, p: CellParams, det: bool):
+def _equilibrium_adjusted_x(X0, X1, N, W, V, p: CellParams, det: bool, stop_reduce=None):
     """Adjust velocities down (or back up) so the reaction quotient does
     not overshoot Ke.  The correction stops for a whole group once no
-    impactful protein of the group needs adjustment."""
+    impactful protein of the group needs adjustment; ``stop_reduce``
+    (a mesh's all-reduce) sums each group's count over the ranks that
+    hold the rest of its rows, so the stop stays batch-global."""
     has_impact = V.abs() > 0.1
     is_fwd = V > 0.0
     F = torch.ones_like(V)  # (G,T,p)
@@ -224,7 +226,10 @@ def _equilibrium_adjusted_x(X0, X1, N, W, V, p: CellParams, det: bool):
         v_too_high = v_too_high & ~(~is_fwd & (F == 0.0))
 
         needs_adj = (v_too_low | v_too_high) & has_impact
-        stopped = stopped | (needs_adj.sum((-2, -1)) == 0).view(-1, 1, 1)
+        count = needs_adj.sum((-2, -1))
+        if stop_reduce is not None:
+            count = stop_reduce(count)
+        stopped = stopped | (count == 0).view(-1, 1, 1)
         apply = ~stopped
 
         F = torch.where(apply & v_too_high, F - increment, F)
@@ -238,24 +243,25 @@ def _equilibrium_adjusted_x(X0, X1, N, W, V, p: CellParams, det: bool):
     return X1
 
 
-def _integrate_part(X0, adj_vmax, p: CellParams, det: bool) -> torch.Tensor:
+def _integrate_part(X0, adj_vmax, p: CellParams, det: bool, stop_reduce=None) -> torch.Tensor:
     """One trim pass."""
     V = _velocities(X0, adj_vmax, p, det)
     W = V * _negative_factors(X0, p.N, V, det)
     X1 = _weighted_dx(X0, p.N, W, det)
     X1 = _where(X1 < 0.0, 0.0, X1)  # small fp errors can give -1e-7
-    return _equilibrium_adjusted_x(X0, X1, p.N, W, V, p, det)
+    return _equilibrium_adjusted_x(X0, X1, p.N, W, V, p, det, stop_reduce)
 
 
 def integrate_grouped(
-    X: torch.Tensor, params: CellParams, det: bool
+    X: torch.Tensor, params: CellParams, det: bool, stop_reduce=None
 ) -> torch.Tensor:
     """One integrator step over grouped signals ``X`` (G, T, s) and
-    parameters with the same two leading axes."""
+    parameters with the same two leading axes.  ``stop_reduce``: see
+    :func:`_equilibrium_adjusted_x`."""
     with flush_denormal(X.device) if det else contextlib.nullcontext():
         for trim in TRIM_FACTORS:
             X = _integrate_part(
-                X, torch.clamp(params.Vmax * trim, min=0.0), params, det
+                X, torch.clamp(params.Vmax * trim, min=0.0), params, det, stop_reduce
             )
     return X
 

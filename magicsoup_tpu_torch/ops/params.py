@@ -298,8 +298,16 @@ def compact_rows(arr: torch.Tensor, perm: torch.Tensor, n_keep) -> torch.Tensor:
     return out
 
 
-def permute_params(state: CellParams, perm: torch.Tensor, n_keep) -> CellParams:
-    """:func:`compact_rows` over all nine parameter tensors."""
+def permute_params(state: CellParams, perm, n_keep, mesh=None) -> CellParams:
+    """:func:`compact_rows` over all nine parameter tensors.  Under a
+    ``mesh`` ``state`` is this rank's slot block and ``perm`` the host
+    permutation: a compacted row's new slot may lie on another rank, so
+    the rows that cross a tile boundary travel between the ranks
+    (:func:`magicsoup_tpu_torch.parallel.tiled.compact_block`)."""
+    if mesh is not None:
+        from magicsoup_tpu_torch.parallel.tiled import compact_block
+
+        return CellParams(*(compact_block(mesh, s, perm, n_keep) for s in state))
     return CellParams(*(compact_rows(s, perm, n_keep) for s in state))
 
 

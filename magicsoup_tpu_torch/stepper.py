@@ -48,7 +48,20 @@ only while nothing of the dispatch has been enqueued, probes the
 ``MAGICSOUP_GUARD_FETCH_TIMEOUT``.  Attaching a recorder or arming a fault
 leaves the device program unchanged.
 
-Left out of this port: mesh-placed worlds.
+A mesh-placed world (``World(mesh=...)``) runs the same body on every
+rank (:func:`_mesh_step_body`): the map rows and the cell slot block of
+molecules and parameters stay on their rank between steps, positions,
+occupancy and liveness are replicated, as the host state they mirror.
+Each step all-gathers the map and the molecules, runs the single-device
+phases on them, integrates the rank's own slot block (one kernel launch
+per rank), diffuses the gathered map as one device does (no collective),
+moves the parameter rows that cross a tile boundary, and keeps the
+rank's blocks; the packed record is computed from the gathered state, so
+it is the same on every rank, and gains one occupancy word per tile at
+its tail.  A mesh
+dispatch runs the whole capacity, and every rank replays its records on
+the same schedule.  In deterministic mode the trajectory is bit-identical
+to the single-device one.
 """
 import contextlib
 import time
@@ -67,6 +80,7 @@ from magicsoup_tpu_torch.ops import detmath as _detmath
 from magicsoup_tpu_torch.ops import diffusion as _diff
 from magicsoup_tpu_torch.ops import prng as _prng
 from magicsoup_tpu_torch.ops.integrate import CellParams
+from magicsoup_tpu_torch.parallel import tiled as _tiled
 from magicsoup_tpu_torch.telemetry import TelemetryRecorder
 from magicsoup_tpu_torch.telemetry import metrics as _metrics
 from magicsoup_tpu_torch.telemetry.recorder import note_fetch
@@ -106,6 +120,7 @@ class StepOutputs(NamedTuple):
     bad_cells: Any = None  # (cap,) bool rows with bad concentrations
     invariants: int = 0  # invariant flag word (check.invariants layout)
     mass_drift: float = 0.0  # absolute mass drift across the physics phase
+    tile_occupancy: Any = None  # (n_tiles,) occupied pixels per map-row tile (mesh runs)
 
 
 _BITS = 16  # bits packed per i32 word (16 keeps every value positive)
@@ -134,9 +149,11 @@ def _unpack_bits(words: np.ndarray, n: int) -> np.ndarray:
     return bits.reshape(-1)[:n].astype(bool)
 
 
-def record_length(cap: int, max_divisions: int, spawn_block: int) -> int:
+def record_length(cap: int, max_divisions: int, spawn_block: int, n_tiles: int = 1) -> int:
     """Words in a packed step record for a given stepper config — the one
-    layout formula the device pack and the host unpack agree on."""
+    layout formula the device pack and the host unpack agree on.  Mesh
+    runs (``n_tiles > 1``) append one occupancy word per tile at the
+    tail; a single-device record carries no tail."""
     nw_k = -(-cap // _BITS)  # kill / bad-cell bitmask words
     nw_s = -(-spawn_block // _BITS)  # spawn-ok bitmask words
     return (
@@ -147,6 +164,7 @@ def record_length(cap: int, max_divisions: int, spawn_block: int) -> int:
         + nw_s  # spawn-ok bitmask
         + 2 * spawn_block  # spawn positions
         + nw_k  # bad-cell bitmask
+        + (n_tiles if n_tiles > 1 else 0)  # mesh tile occupancy tail
     )
 
 
@@ -366,6 +384,78 @@ def _world_sum(x: torch.Tensor, det: bool) -> torch.Tensor:
     return _detmath.sum_axis(flat, 1) if det else flat.sum(1)
 
 
+# --------------------------------------------------------------------- #
+# parameter rows under a mesh (each rank holds its slot block)          #
+# --------------------------------------------------------------------- #
+
+
+def _write_owned(t: torch.Tensor, rows, values, mask, lo: int) -> None:
+    """``t[b, rows[b, j] - lo] = values[b, j]`` where ``mask`` holds and
+    the global row lies in this rank's block ``t`` ``(B, blk, ...)``;
+    in place and without a host synchronization.  The other entries
+    repeat the first written entry (its row and value), or rewrite row 0
+    with its own value when none is written, so every duplicate write
+    carries one value.  The written rows are distinct."""
+    B, blk = t.shape[:2]
+    tail = tuple(t.shape[2:])
+    rel = rows - lo
+    ok = (mask & (rel >= 0) & (rel < blk)).reshape(-1)
+    idx = (torch.arange(B, device=t.device)[:, None] * blk + rel.clamp(0, blk - 1)).reshape(-1)
+    vals = values.reshape((-1,) + tail)
+    flat = t.view((B * blk,) + tail)
+    first = ok.to(torch.uint8).argmax()
+    some = ok.any()
+    fb_idx = torch.where(some, idx[first], torch.zeros_like(idx[first]))
+    fb_val = torch.where(some, vals[first], flat[0])
+    dst = torch.where(ok, idx, fb_idx)
+    flat[dst] = torch.where(ok.view((-1,) + (1,) * len(tail)), vals, fb_val)
+
+
+def _write_rows(t, w: int, rows, values, mesh) -> None:
+    """``t[w, rows] = values`` (global rows)."""
+    if mesh is None:
+        t[w, rows] = values
+        return
+    mask = torch.ones(rows.shape, dtype=torch.bool, device=rows.device)
+    _write_owned(t[w : w + 1], rows[None], values[None], mask[None], mesh.rank * t.shape[1])
+
+
+def _write_new(t, n_rows, values, count, mesh, cap: int) -> None:
+    """:func:`~magicsoup_tpu_torch.ops.params.write_new_rows` into a
+    world of ``cap`` global rows."""
+    if mesh is None:
+        write_new_rows(t, n_rows, values, count)
+        return
+    j = torch.arange(values.shape[1], device=t.device)
+    rows = (n_rows[:, None] + j) % cap
+    _write_owned(t, rows, values, j[None, :] < count[:, None], mesh.rank * t.shape[1])
+
+
+def _take_rows(t, bsrc, src, mesh):
+    """``t[bsrc, src]``: under a mesh each world's rows gathered from
+    their owners."""
+    if mesh is None:
+        return t[bsrc, src]
+    return torch.stack([_tiled.gather_rows(mesh, t[w], src[w]) for w in range(t.shape[0])])
+
+
+def _compact_rows(t, perm, n_keep, mesh):
+    """One world's :func:`compact_rows`: under a mesh over the gathered
+    rows (the permutation moves rows across tiles), keeping the block."""
+    if mesh is None:
+        return compact_rows(t, perm, n_keep)
+    return mesh.local(compact_rows(mesh.all_gather(t, 0), perm, n_keep), 0)
+
+
+def _row_has_params(params: CellParams, mesh) -> torch.Tensor:
+    """``(B, cap)``: which rows hold any nonzero parameter."""
+    B, blk = params.Vmax.shape[:2]
+    has = torch.zeros((B, blk), dtype=torch.bool, device=params.Vmax.device)
+    for t in params:
+        has = has | (t != 0).reshape(B, blk, -1).any(-1)
+    return has if mesh is None else mesh.all_gather(has, 1)
+
+
 class _Phases:
     """Profiler ranges over the step body's phases (the JAX package's
     ``jax.named_scope`` names): ``phase(name)`` closes the open range and
@@ -407,11 +497,13 @@ def step_pre_activity(
     first: bool,
     n_rounds: int,
     q: int,
+    mesh=None,
 ) -> tuple[StepCarry, torch.Tensor, CellParams]:
     """The phases of one step before the activity (push, spawn) for B
     worlds; returns the carry, the integrator's signals ``X0`` (B, q, s)
     and its parameters (the q-row prefixes of ``params``).  The parameter
-    tensors are written in place."""
+    tensors are written in place.  Under a ``mesh`` the state is the
+    gathered one and ``params`` the rank's slot block."""
     phase = _Phases()
     mm, cm, pos, occ, alive, n_rows, key = state
     B, cap, n_mols = cm.shape
@@ -433,7 +525,7 @@ def step_pre_activity(
             dense, prow = push
             batch = compute_cell_params(dense, consts.tables[w], consts.abs_temp[w])
             for t, v in zip(params, batch):
-                t[w, prow] = v
+                _write_rows(t, w, prow, v, mesh)
 
     # ---- 0. spawn queued newcomers (first step only) ----
     phase("ms:spawn")
@@ -460,7 +552,9 @@ def step_pre_activity(
             batch = compute_cell_params(dense, consts.tables[w], consts.abs_temp[w])
             idx = order[w, : min(n_w, cap)].clamp(max=n_w - 1)
             for t, v in zip(params, batch):
-                write_new_rows(t[w : w + 1], n_rows[w : w + 1], v[idx][None], n_ok[w : w + 1])
+                _write_new(
+                    t[w : w + 1], n_rows[w : w + 1], v[idx][None], n_ok[w : w + 1], mesh, cap
+                )
         n_rows = n_rows + n_ok
     else:
         spawn_ok = spawn_pos = None
@@ -495,13 +589,16 @@ def step_post_activity(
     max_div: int,
     n_rounds: int,
     compact: tuple = (),
+    mesh=None,
 ) -> tuple[DeviceState, CellParams, torch.Tensor]:
     """The phases of one step after the activity (select and kill,
     divide, physics, metric and guard lanes, compaction of the worlds in
     ``compact``, the packed record), given the integrator's output ``X1``
     (B, q, s); returns the new state and parameters and the ``(B,
     record)`` packed output.  The parameter tensors are written in
-    place."""
+    place.  Under a ``mesh`` (gathered state, the rank's parameter
+    block) the rows of new cells cross to their owners' blocks and the
+    record gains the per-tile occupancy tail."""
     phase = _Phases()
     mm, cm, pos, occ, alive, n_rows, key = carry.state
     k_div, mol_onehot = carry.k_div, carry.mol_onehot
@@ -559,9 +656,9 @@ def step_post_activity(
     d = min(max_div, cap)
     src = p_idx[:, :d].clamp(max=cap - 1)
     bsrc = bidx[:, None].expand(B, d)
-    values = CellParams(*(t[bsrc, src] for t in params))
+    values = CellParams(*(_take_rows(t, bsrc, src, mesh) for t in params))
     for t, v in zip(params, values):
-        write_new_rows(t, n_rows, v, n_placed)
+        _write_new(t, n_rows, v, n_placed, mesh, cap)
     n_rows = n_rows + n_placed
 
     # ---- 4. degrade + diffuse + permeate ----
@@ -585,6 +682,9 @@ def step_post_activity(
     mm_mass = _world_sum(mm, det)
     cm_mass = _world_sum(cm, det)
     n_occupied = occ.reshape(B, -1).sum(-1)
+    # mesh runs of several tiles: occupied pixels per map-row tile (an
+    # integer sum, exact in any order), at the record's tail
+    tile_occ = None if mesh is None or mesh.size == 1 else occ.reshape(B, mesh.size, -1).sum(-1)
 
     # ---- 4.6 health sentinel lanes ----
     mm_flat = mm.reshape(B, -1)
@@ -611,9 +711,7 @@ def step_post_activity(
     dup_position = (pix[:, : m * m] > 1).any(-1)
     dead = rows[None, :] >= n_rows[:, None]
     dead_cm_residue = (dead[..., None] & (cm != 0.0)).any(-1).any(-1)
-    row_has_params = torch.zeros((B, cap), dtype=torch.bool, device=dev)
-    for t in params:
-        row_has_params = row_has_params | (t != 0).reshape(B, cap, -1).any(-1)
+    row_has_params = _row_has_params(params, mesh)
     dead_param_residue = (dead & row_has_params).any(-1)
     mass_drift = (mm_mass + cm_mass - mass_pre).abs()
     drift_denom = torch.clamp(mass_pre.abs(), min=1.0)
@@ -641,7 +739,7 @@ def step_post_activity(
             cm[w] = compact_rows(cm[w], perm, n_keep)
             pos[w] = compact_rows(pos[w], perm, n_keep)
             for t in params:
-                t[w] = compact_rows(t[w], perm, n_keep)
+                t[w] = _compact_rows(t[w], perm, n_keep, mesh)
             alive[w] = rows < n_keep
             n_rows[w] = n_keep
 
@@ -676,7 +774,8 @@ def step_post_activity(
             _pack_bits(spawn_ok),
             spawn_pos.reshape(B, -1).to(torch.int32),
             _pack_bits(bad_cells),
-        ],
+        ]
+        + ([] if tile_occ is None else [tile_occ.to(torch.int32)]),
         dim=1,
     )
     phase(None)
@@ -699,6 +798,7 @@ def _step_body(
     q: int,
     integrator: str,
     compact: tuple = (),
+    mesh=None,
 ) -> tuple[DeviceState, CellParams, torch.Tensor]:
     """One fused workload step for B worlds (push -> spawn -> activity ->
     select -> kill -> divide -> degrade/diffuse/permeate [-> compact]),
@@ -709,7 +809,13 @@ def _step_body(
     lists the worlds whose rows fold at the end of this step.  It is
     :func:`step_pre_activity`, one integrator call and
     :func:`step_post_activity`; a fused fleet step interleaves the pieces
-    of several rungs around one grouped integrator launch."""
+    of several rungs around one grouped integrator launch.  A ``mesh``
+    runs :func:`_mesh_step_body`."""
+    if mesh is not None:
+        return _mesh_step_body(
+            state, params, consts, inputs, first=first, det=det, max_div=max_div,
+            n_rounds=n_rounds, integrator=integrator, compact=compact, mesh=mesh,
+        )
     carry, X0, params_q = step_pre_activity(
         state, params, consts, inputs, first=first, n_rounds=n_rounds, q=q
     )
@@ -719,6 +825,42 @@ def _step_body(
         carry, X1, params, consts, inputs,
         det=det, max_div=max_div, n_rounds=n_rounds, compact=compact,
     )
+
+
+def _mesh_step_body(
+    state: DeviceState,
+    params: CellParams,
+    consts: StepConsts,
+    inputs: DispatchInputs,
+    *,
+    first: bool,
+    det: bool,
+    max_div: int,
+    n_rounds: int,
+    integrator: str,
+    compact: tuple,
+    mesh,
+) -> tuple[DeviceState, CellParams, torch.Tensor]:
+    """One step of a mesh-placed world on this rank: ``state.mm`` holds
+    the rank's map rows and ``state.cm`` and ``params`` its slot block.
+    The map and the molecules are all-gathered, the single-device phases
+    run on them over the whole capacity, the integrator on the rank's
+    slot block (its output all-gathered), and the rank keeps its blocks
+    of the result; the record comes from the gathered state."""
+    full = state._replace(mm=mesh.all_gather(state.mm, 2), cm=mesh.all_gather(state.cm, 1))
+    cap = full.cm.shape[1]
+    carry, X0, params_q = step_pre_activity(
+        full, params, consts, inputs, first=first, n_rounds=n_rounds, q=cap, mesh=mesh
+    )
+    lo, hi = mesh.block(cap)
+    with torch.profiler.record_function("ms:activity"):
+        X1 = _backends.integrate(integrator, X0[:, lo:hi].contiguous(), params_q, mesh=mesh)
+        X1 = mesh.all_gather(X1, 1)
+    new, params, out = step_post_activity(
+        carry, X1, params, consts, inputs,
+        det=det, max_div=max_div, n_rounds=n_rounds, compact=compact, mesh=mesh,
+    )
+    return new._replace(mm=mesh.local(new.mm, 2), cm=mesh.local(new.cm, 1)), params, out
 
 
 def det_scope(det: bool, device):
@@ -740,12 +882,13 @@ def megastep(
     q: int,
     integrator: str,
     compact: tuple = (),
+    mesh=None,
 ) -> tuple[DeviceState, CellParams, torch.Tensor]:
     """``k`` fused steps enqueued back to back with no host wait, their
     records stacked into one ``(B, k, record)`` buffer.  Spawn batches and
     parameter pushes ride step 0; ``compact`` applies to the last step
     only.  In deterministic mode on the CPU the whole dispatch flushes
-    subnormals, as XLA does."""
+    subnormals, as XLA does.  ``mesh``: see :func:`_mesh_step_body`."""
     outs = []
     with det_scope(det, state.cm.device):
         for i in range(k):
@@ -761,6 +904,7 @@ def megastep(
                 q=q,
                 integrator=integrator,
                 compact=compact if i == k - 1 else (),
+                mesh=mesh,
             )
             outs.append(out)
     return state, params, torch.stack(outs, dim=1)
@@ -1044,8 +1188,6 @@ class PipelinedStepper:
         from magicsoup_tpu_torch.guard.sentinel import SENTINEL_POLICIES
         from magicsoup_tpu_torch.guard.watchdog import fetch_timeout as _ft
 
-        if getattr(world, "_mesh", None) is not None:
-            raise ValueError("mesh-placed worlds are not ported; use one device")
         if not isinstance(dispatch_retries, int) or dispatch_retries < 0:
             raise ValueError("dispatch_retries must be an int >= 0")
         if lag != "auto" and (not isinstance(lag, int) or lag < 0):
@@ -1056,6 +1198,9 @@ class PipelinedStepper:
             raise ValueError(f"sentinel_policy must be one of {SENTINEL_POLICIES}")
         self.world = world
         self.kin = world.kinetics
+        # a mesh-placed world runs the mesh step body on every rank
+        self._mesh = getattr(world, "_mesh", None)
+        self._n_tiles = self._mesh.size if self._mesh is not None else 1
         self.mol_idx = world.chemistry.molname_2_idx[mol_name]
         self.kill_below = float(kill_below)
         self.divide_above = float(divide_above)
@@ -1177,12 +1322,16 @@ class PipelinedStepper:
             w.kinetics._param_epoch,
             w.n_cells,
             w._capacity,
-            w._molecule_map,
-            w._cell_molecules,
+            w._block("_molecule_map"),
+            w._block("_cell_molecules"),
             w._positions_dev,
             w.kinetics,
             w.kinetics.params,
-            w._genome_store.tokens if w._genome_store is not None else w._genomes_list,
+            (
+                w._genome_store.__dict__["tokens"]
+                if w._genome_store is not None
+                else w._genomes_list
+            ),
             w.cell_labels,
             w._np_positions,
             w._np_lifetimes,
@@ -1210,8 +1359,8 @@ class PipelinedStepper:
         dev = w.device
         self._cap = w._capacity
         self._state = DeviceState(
-            mm=w._molecule_map.clone()[None],
-            cm=w._cell_molecules.clone()[None],
+            mm=w._block("_molecule_map").clone()[None],
+            cm=w._block("_cell_molecules").clone()[None],
             pos=w._positions_dev.clone()[None],
             occ=to_device(w._np_cell_map[None], dev),
             alive=(torch.arange(self._cap, device=dev) < w.n_cells)[None],
@@ -1280,6 +1429,7 @@ class PipelinedStepper:
                 q=q,
                 integrator=self.world.integrator,
                 compact=(0,) if plan.compact else (),
+                mesh=self._mesh,
             )
         )
         self.kin.params = CellParams(*(t[0] for t in params))
@@ -1395,8 +1545,8 @@ class PipelinedStepper:
                 # own)
                 w = self.world
                 self._state = self._state._replace(
-                    mm=w._molecule_map.clone()[None],
-                    cm=w._cell_molecules.clone()[None],
+                    mm=w._block("_molecule_map").clone()[None],
+                    cm=w._block("_cell_molecules").clone()[None],
                     pos=w._positions_dev.clone()[None],
                 )
                 _runtime.note_attach(skipped=1)
@@ -1485,6 +1635,11 @@ class PipelinedStepper:
             device=self.world.device,
             budget_cache=self._budget_cache,
         )
+        if self._mesh is not None:
+            # a prefix slice of the sharded cell axis would put the live
+            # rows on the first tiles: a mesh dispatch runs the whole
+            # capacity (dead rows are exact no-ops)
+            return inputs, self._cap
         upper = self._n_rows + plan.k * plan.div_budget + len(plan.spawn)
         for p in self._pending:
             upper += p.div_budget + len(p.spawn_genomes)
@@ -1560,6 +1715,10 @@ class PipelinedStepper:
                 "cold": False,
                 "compact": bool(plan.compact),
             }
+            if self._mesh is not None:
+                # the mesh's shape, so a run's JSONL describes its topology
+                row["tiles"] = self._n_tiles
+                row["mesh_axis"] = self._mesh.axis_name
             if extra_row:
                 row.update(extra_row)
             rec.emit(row)
@@ -1590,7 +1749,7 @@ class PipelinedStepper:
         sb = self.spawn_block
         nw_k = -(-self._cap // _BITS)
         nw_s = -(-sb // _BITS)
-        assert arr.shape[0] == record_length(self._cap, md, sb), (
+        assert arr.shape[0] == record_length(self._cap, md, sb, self._n_tiles), (
             "step record length drifted from stepper.record_length"
         )
         off = _HEADER_WORDS
@@ -1605,6 +1764,8 @@ class PipelinedStepper:
         spawn_pos = arr[off : off + 2 * sb].reshape(sb, 2)
         off += 2 * sb
         bad_cells = _unpack_bits(arr[off : off + nw_k], self._cap)
+        off += nw_k
+        tile_occ = arr[off : off + self._n_tiles].copy() if self._n_tiles > 1 else None
         # f32 totals travel as their bits: re-view, do not cast
         masses = np.ascontiguousarray(arr[6:8]).view(np.float32)
         drift = np.ascontiguousarray(arr[10:11]).view(np.float32)
@@ -1626,13 +1787,17 @@ class PipelinedStepper:
             bad_cells=bad_cells,
             invariants=int(arr[INVARIANT_WORD]),
             mass_drift=float(drift[0]),
+            tile_occupancy=tile_occ,
         )
 
     def _drain(self, block: bool) -> None:
         while self._pending:
             if self.lag == "auto":
                 must = block or len(self._pending) > self.max_lag
-                if not must and not self._pending[0].out.done():
+                # under a mesh every rank replays on one schedule: a
+                # replay on readiness would let the ranks' host decisions,
+                # and so their collectives, diverge
+                if not must and (self._mesh is not None or not self._pending[0].out.done()):
                     break
             elif not block and len(self._pending) < max(self.lag, 1):
                 # fixed lag: replay on schedule only, never on readiness
@@ -1925,9 +2090,16 @@ class PipelinedStepper:
             lens = np.fromiter(map(len, self._genomes), dtype=np.int64, count=len(self._genomes))
             lens = lens[np.nonzero(self._alive)[0]]
         n = len(lens)
+        # per-tile occupancy from the record's tail: a mesh run's
+        # load-balance signal (the summary checks it sums to occupied)
+        extra = (
+            {} if out.tile_occupancy is None
+            else {"tile_occupancy": [int(v) for v in out.tile_occupancy]}
+        )
         return {
             "type": "step",
             "step": self.stats["replayed"],
+            **extra,
             "alive": out.n_alive,
             "rows": out.n_rows,
             "occupied": out.n_occupied,
@@ -2182,13 +2354,18 @@ class PipelinedStepper:
             with self.telemetry.span("compact"):
                 perm_t = to_device(perm.astype(np.int64), self.world.device)
                 st = self._state
+                if self._mesh is None:
+                    cm = compact_rows(st.cm[0], perm_t, n_keep)
+                    self.kin.params = permute_params(self.kin.params, perm_t, n_keep)
+                else:
+                    cm = _tiled.compact_block(self._mesh, st.cm[0], perm, n_keep)
+                    self.kin.permute_cells(perm, n_keep)
                 self._state = st._replace(
-                    cm=compact_rows(st.cm[0], perm_t, n_keep)[None],
+                    cm=cm[None],
                     pos=compact_rows(st.pos[0], perm_t, n_keep)[None],
                     alive=(torch.arange(self._cap, device=perm_t.device) < n_keep)[None],
                     n_rows=torch.full_like(st.n_rows, n_keep),
                 )
-                self.kin.params = permute_params(self.kin.params, perm_t, n_keep)
             self._apply_perm(perm, n_keep)
 
         w = self.world
@@ -2206,8 +2383,7 @@ class PipelinedStepper:
         live = self._positions[:n_keep]
         cmap[live[:, 0], live[:, 1]] = True
         w._np_cell_map = cmap
-        w._molecule_map = self._state.mm[0]
-        w._cell_molecules = self._state.cm[0]
+        w._set_blocks(self._state.mm[0], self._state.cm[0])
         w._positions_dev = self._state.pos[0]
         w._mm_cache = None
         w._cm_cache = None

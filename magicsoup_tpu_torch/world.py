@@ -3,7 +3,7 @@ The World: the main API object holding all simulation state and the methods
 advancing it — the classic ``World`` of :mod:`magicsoup_tpu.world`, in
 PyTorch.
 
-The same public surface (apart from meshes and compile warming) and the
+The same public surface (apart from compile warming) and the
 same index semantics: cells are dense indices
 0..n_cells-1, kill compacts and shifts indices, molecules are ordered as
 in :class:`Chemistry`.
@@ -26,6 +26,16 @@ in :class:`Chemistry`.
 - **persistence**: a pickle holds host numpy and the device's name, so a
   world saved on the card loads anywhere (``from_file(device=...)``);
   ``save_state`` writes the JAX package's file set byte for byte.
+- **meshes**: ``World(mesh=...)`` places the world over a 1D mesh of
+  ranks (:mod:`magicsoup_tpu_torch.parallel`): each rank holds its rows
+  of the molecule map and its slot block of every cell tensor, the host
+  state is replicated, and every rank runs the same calls in the same
+  order.  ``molecule_map``, ``cell_molecules`` and the other host reads
+  see the global state (an all-gather, so they are collective too);
+  activity integrates each rank's own slot block, diffusion exchanges
+  halo rows (:mod:`magicsoup_tpu_torch.parallel.tiled`).  In
+  deterministic mode a mesh world is bit-identical to the same world on
+  one device.
 
 The molecule tensors are replaced, never written in place, by every step
 (the JAX package's arrays are immutable, and the host snapshots below are
@@ -52,6 +62,7 @@ from magicsoup_tpu_torch.ops.detmath import flush_denormal
 from magicsoup_tpu_torch.ops.integrate import CellParams, default_deterministic
 from magicsoup_tpu_torch.guard.errors import CheckpointError
 from magicsoup_tpu_torch.guard.io import atomic_write_bytes, atomic_write_text
+from magicsoup_tpu_torch.parallel import tiled as _tiled
 from magicsoup_tpu_torch.ops.params import (
     compact_rows,
     pad_pow2,
@@ -184,12 +195,21 @@ class World:
             file, and a recorder passes through (shared across worlds).
             A :class:`~magicsoup_tpu_torch.PipelinedStepper` over the
             world writes its dispatch and step rows to it.
+        mesh: A :class:`~magicsoup_tpu_torch.parallel.tiled.Mesh`: shard
+            the world over its ranks (map rows, cell slots; module notes),
+            on ``mesh.device``.  Mutually exclusive with ``device``;
+            ``map_size`` must divide into the mesh's tiles.
 
     State is exposed with the reference's names — ``cell_genomes``,
     ``cell_labels``, ``cell_map``, ``cell_positions``, ``cell_lifetimes``,
     ``cell_divisions``, ``cell_molecules``, ``molecule_map`` — with cells
     always indexed 0..n_cells-1.
     """
+
+    # the device state: the whole tensors, or under a mesh this rank's
+    # block (map rows, cell slots) read back as the whole tensor
+    _molecule_map = _tiled.sharded_attr("_molecule_map", 1)
+    _cell_molecules = _tiled.sharded_attr("_cell_molecules", 0)
 
     def __init__(
         self,
@@ -206,9 +226,23 @@ class World:
         phenotype_cache_size: int = 16384,
         genome_backend: str = "string",
         telemetry=None,
+        mesh=None,
     ):
         from magicsoup_tpu_torch.telemetry import TelemetryRecorder
 
+        if device is not None and mesh is not None:
+            raise ValueError(
+                "device and mesh are mutually exclusive: a mesh-placed"
+                " world is sharded over the mesh's devices"
+            )
+        if mesh is not None:
+            if map_size % mesh.size != 0:
+                raise ValueError(
+                    f"map_size={map_size} must be divisible by the first"
+                    f" mesh axis size {mesh.size} for row sharding"
+                )
+            device = mesh.device
+        self._mesh = mesh
         self.device = resolve_device(device, "World")
         if seed is None:
             seed = random.SystemRandom().randrange(2**63)
@@ -244,6 +278,7 @@ class World:
             seed=self._rng.randrange(2**63),
             device=self.device,
         )
+        self.kinetics.mesh = mesh
 
         mols = chemistry.molecules
         self.n_molecules = len(mols)
@@ -349,20 +384,30 @@ class World:
             )
         self._molecule_map = value.clone()
 
+    def _block(self, name: str) -> torch.Tensor:
+        """The stored tensor behind ``_molecule_map`` or
+        ``_cell_molecules``: this rank's block under a mesh."""
+        return self.__dict__[name]
+
+    def _set_blocks(self, mm: torch.Tensor, cm: torch.Tensor) -> None:
+        """Store ``_molecule_map`` and ``_cell_molecules`` as given: this
+        rank's blocks under a mesh."""
+        self.__dict__["_molecule_map"], self.__dict__["_cell_molecules"] = mm, cm
+
     def _host_molecule_map(self) -> np.ndarray:
         """Cached host snapshot of the molecule map (valid while the
         device tensor object is unchanged)."""
         cache = self._mm_cache
-        if cache is None or cache[0] is not self._molecule_map:
-            cache = (self._molecule_map, fetch_host(self._molecule_map))
+        if cache is None or cache[0] is not self._block("_molecule_map"):
+            cache = (self._block("_molecule_map"), fetch_host(self._molecule_map))
             self._mm_cache = cache
         return cache[1]
 
     def _host_cell_molecules(self) -> np.ndarray:
         """Cached host snapshot of the full-capacity cell molecule buffer"""
         cache = self._cm_cache
-        if cache is None or cache[0] is not self._cell_molecules:
-            cache = (self._cell_molecules, fetch_host(self._cell_molecules))
+        if cache is None or cache[0] is not self._block("_cell_molecules"):
+            cache = (self._block("_cell_molecules"), fetch_host(self._cell_molecules))
             self._cm_cache = cache
         return cache[1]
 
@@ -398,14 +443,14 @@ class World:
             done.record()
         else:
             host, done = col.clone(), None
-        self._col_prefetch = (self._cell_molecules, mol_idx, host, done)
+        self._col_prefetch = (self._block("_cell_molecules"), mol_idx, host, done)
 
     def cell_molecule_column(self, mol_idx: int) -> np.ndarray:
         """(n_cells,) float32 host copy of ONE molecule's intracellular
         concentrations (n_mols times less traffic than ``cell_molecules``)."""
         pf = self._col_prefetch
         self._col_prefetch = None
-        if pf is not None and pf[0] is self._cell_molecules and pf[1] == mol_idx:
+        if pf is not None and pf[0] is self._block("_cell_molecules") and pf[1] == mol_idx:
             _, _, host, done = pf
             if done is not None:
                 done.synchronize()
@@ -466,6 +511,10 @@ class World:
         if n <= self._capacity:
             return
         cap = pad_pow2(n, minimum=_MIN_CAPACITY)
+        if self._mesh is not None:
+            # the cell axis is sharded: capacity must split evenly across
+            # the tiles (a pow2 cap over a pow2 tile count already does)
+            cap = -(-cap // self._mesh.size) * self._mesh.size
         grow = cap - self._capacity
         self._np_positions = np.concatenate(
             [self._np_positions, np.zeros((grow, 2), dtype=np.int32)]
@@ -484,7 +533,9 @@ class World:
         self._capacity = cap
         if self.genome_backend == "token":
             if self._genome_store is None:
-                self._genome_store = _genomes.GenomeStore(cap, device=self.device)
+                self._genome_store = _genomes.GenomeStore(
+                    cap, device=self.device, mesh=self._mesh
+                )
             else:
                 self._genome_store.grow_capacity(cap)
         self._sync_positions()
@@ -943,6 +994,15 @@ class World:
         """What the next :meth:`enzymatic_activity` hands the integrator:
         the signals ``X0`` ``(q, 2 * n_molecules)`` and the kinetic
         parameters, both over the live-row prefix ``q``."""
+        if self._mesh is not None:
+            # this rank's slot block (a mesh runs the whole capacity)
+            X0, _ = _tiled.activity_inputs(
+                self._mesh,
+                self._block("_molecule_map"),
+                self._block("_cell_molecules"),
+                self._positions_dev,
+            )
+            return X0, self.kinetics.params
         q = quantize_rows(self.n_cells, self._capacity)
         return _integrator_inputs(
             self._molecule_map,
@@ -959,6 +1019,11 @@ class World:
         (a later :meth:`cell_molecule_column` picks it up)."""
         if self.n_cells == 0:
             return
+        if self._mesh is not None:
+            self._mesh_activity()
+            if prefetch_column is not None:
+                self.prefetch_cell_molecule_column(prefetch_column)
+            return
         q = quantize_rows(self.n_cells, self._capacity)
         with self._ftz():
             self._molecule_map, self._cell_molecules = _enzymatic_activity(
@@ -973,9 +1038,39 @@ class World:
         if prefetch_column is not None:
             self.prefetch_cell_molecule_column(prefetch_column)
 
+    def _mesh_activity(self) -> None:
+        """Activity of a mesh-placed world: each rank integrates its slot
+        block (:func:`~magicsoup_tpu_torch.parallel.tiled.sharded_activity`)."""
+        mesh = self._mesh
+        with self._ftz():
+            mm, cm = _tiled.sharded_activity(
+                mesh,
+                functools.partial(_backends.integrate, self.integrator, mesh=mesh),
+                self._block("_molecule_map"),
+                self._block("_cell_molecules"),
+                self._positions_dev,
+                self.n_cells,
+                self.kinetics.params,
+            )
+        self._set_blocks(mm, cm)
+
     def diffuse_molecules(self):
         """Let molecules diffuse over the map and permeate membranes for
         one time step."""
+        if self._mesh is not None:
+            with self._ftz():
+                mm, cm = _tiled.sharded_diffuse_permeate(
+                    self._mesh,
+                    self._block("_molecule_map"),
+                    self._block("_cell_molecules"),
+                    self._positions_dev,
+                    self.n_cells,
+                    self._diff_kernels,
+                    self._perm_factors,
+                    self.deterministic,
+                )
+            self._set_blocks(mm, cm)
+            return
         with self._ftz():
             if self.n_cells == 0:
                 self._molecule_map = _diff.diffuse(
@@ -995,9 +1090,13 @@ class World:
     def degrade_molecules(self):
         """Degrade molecules everywhere by one time step"""
         with self._ftz():
-            self._molecule_map, self._cell_molecules = _diff.degrade(
-                self._molecule_map, self._cell_molecules, self._degrad_factors
+            # elementwise: each rank's blocks under a mesh
+            mm, cm = _diff.degrade(
+                self._block("_molecule_map"),
+                self._block("_cell_molecules"),
+                self._degrad_factors,
             )
+        self._set_blocks(mm, cm)
 
     def degrade_and_diffuse_molecules(self):
         """:meth:`degrade_molecules` followed by :meth:`diffuse_molecules`."""
@@ -1172,7 +1271,9 @@ class World:
         if backend == self.genome_backend:
             return
         if backend == "token":
-            store = _genomes.GenomeStore(max(self._capacity, _MIN_CAPACITY), device=self.device)
+            store = _genomes.GenomeStore(
+                max(self._capacity, _MIN_CAPACITY), device=self.device, mesh=self._mesh
+            )
             store.set_all(self._genomes_list)
             self._genome_store = store
             self._genomes_list = []
@@ -1211,6 +1312,9 @@ class World:
         state["_mm_cache"] = None
         state["_cm_cache"] = None
         state["device"] = str(self.device)
+        # a mesh is bound to a live process group: a pickle is mesh-free
+        # (restore_run(mesh=) places a restored world again)
+        state["_mesh"] = None
         return state
 
     def __setstate__(self, state: dict):
@@ -1223,6 +1327,7 @@ class World:
         self.__dict__.setdefault("_genome_store", None)
         self.__dict__.setdefault("_genomes_list", [])
         self.__dict__.setdefault("_host_epoch", 0)
+        self.__dict__.setdefault("_mesh", None)
         if legacy_genomes is not None:
             self._genomes_list = list(legacy_genomes)
         # recorders pickle themselves detached (no file handle survives a

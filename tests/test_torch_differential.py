@@ -14,7 +14,11 @@ on the CPU:
   ``differential_fused2_seed11.json``, ``fused2`` and ``fused_fleet``
   equal to their solo paths (``k1``, ``k4``) at every boundary and to the
   JAX harness's digests;
-- the paths that wait on other parts of the port raise, naming them.
+- the mesh axis: ``mesh2`` and ``token_mesh2`` (the K=1 stepper over a
+  world on a two-rank gloo process group of child processes) reproducing
+  the golden files (they are det paths), equal to ``k1`` / ``token_k1``
+  at every boundary and to the JAX harness's two-device digests (run in
+  a process of their own, ``tests/jax_mesh_reference.py``).
 """
 import jax
 import jax.experimental
@@ -22,6 +26,7 @@ import jax.experimental
 if not hasattr(jax.experimental, "enable_x64"):
     jax.experimental.enable_x64 = jax.enable_x64
 
+import functools  # noqa: E402
 import json  # noqa: E402
 from pathlib import Path  # noqa: E402
 
@@ -30,6 +35,8 @@ import torch  # noqa: E402
 
 from magicsoup_tpu.check import differential as jdiff  # noqa: E402
 from magicsoup_tpu_torch.check import differential  # noqa: E402
+
+from jax_mesh_reference import jax_reference  # noqa: E402
 
 GOLDEN = Path(__file__).parent / "fast" / "data" / "golden"
 DET_PATHS = differential.PATHS + differential.FLEET_PATHS + differential.TOKEN_PATHS
@@ -100,10 +107,24 @@ def test_fused_paths_equal_their_solo_paths_and_the_jax_harness(
     assert fused == jdiff.run_path(fused_path, seed=11, n_cells=12)
 
 
-@pytest.mark.parametrize("path", ["classic", "k1", "k4", "fleet1", "token_k1"])
+@functools.lru_cache(maxsize=None)
+def _jax_mesh_paths() -> dict:
+    """The JAX harness's mesh paths on its two-device mesh, in a process
+    of their own (``tests/jax_mesh_reference.py``)."""
+    paths = differential.MESH_PATHS
+    got = jax_reference([["mesh_path", {"path": p, "seed": 11, "n_cells": 12}] for p in paths])
+    return dict(zip(paths, got))
+
+
+@pytest.mark.parametrize(
+    "path", ["classic", "k1", "k4", "fleet1", "token_k1", "mesh2", "token_mesh2"]
+)
 def test_state_digests_equal_the_jax_package(path, monkeypatch):
     monkeypatch.setenv("MAGICSOUP_TPU_DETERMINISTIC", "1")
-    want = jdiff.run_path(path, seed=11, n_cells=12)
+    if path in differential.MESH_PATHS:
+        want = _jax_mesh_paths()[path]
+    else:
+        want = jdiff.run_path(path, seed=11, n_cells=12)
     got = differential.run_path(path, seed=11, n_cells=12, device="cpu")
     assert got == want
 
@@ -118,10 +139,14 @@ def test_run_differential_reports_every_path_equal(monkeypatch):
     assert len(report["digests"]["classic"]) == len(differential.BOUNDARIES)
 
 
-@pytest.mark.parametrize("path", sorted(differential.NOT_PORTED))
-def test_paths_not_ported_raise_naming_their_roadmap_item(path):
-    with pytest.raises(ValueError, match=r"ROADMAP A[69]"):
-        differential.run_path(path, device="cpu")
+@pytest.mark.parametrize("mesh_path,solo_path", [("mesh2", "k1"), ("token_mesh2", "token_k1")])
+def test_mesh_paths_equal_their_solo_paths(mesh_path, solo_path, monkeypatch):
+    monkeypatch.setenv("MAGICSOUP_TPU_DETERMINISTIC", "1")
+    assert differential.NOT_PORTED == {}
+    mesh = differential.run_path(mesh_path, seed=23, n_cells=12, device="cpu")
+    solo = differential.run_path(solo_path, seed=23, n_cells=12, device="cpu")
+    for name, want, got in zip(differential.BOUNDARIES, solo, mesh):
+        assert want == got, f"{mesh_path} forked from {solo_path} at {name}"
 
 
 def test_unknown_path_raises():

@@ -277,7 +277,8 @@ def test_restore_run_device_rules(tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         guard.restore_run(mgr)
-    with pytest.raises(ValueError, match="A9"):
+    # restore_run(mesh=) is ported: the mesh names the device itself
+    with pytest.raises(ValueError, match="mutually exclusive"):
         guard.restore_run(mgr, device="cpu", mesh=object())
     with pytest.raises(CheckpointError) as e:
         guard.restore_run(mgr, device="cpu", genome_backend="rope")

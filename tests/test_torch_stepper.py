@@ -427,10 +427,10 @@ def test_what_is_not_ported_raises():
     assert mt.PipelinedStepper(w, dispatch_retries=1).telemetry is w.telemetry
     with pytest.raises(ValueError, match="megastep"):
         mt.PipelinedStepper(w, megastep=0)
-    w._mesh = object()
-    with pytest.raises(ValueError, match="mesh"):
-        mt.PipelinedStepper(w)
-    del w._mesh
+    # mesh-placed worlds are ported now: a one-device world's stepper
+    # takes no mesh and one tile
+    st = mt.PipelinedStepper(w)
+    assert st._mesh is None and st._n_tiles == 1
     # cross-rung fusion is ported: both modes are accepted, bad settings refused
     for fusion in ("fleet", "auto"):
         assert mt.FleetScheduler(fusion=fusion).fusion == fusion
