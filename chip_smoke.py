@@ -80,9 +80,12 @@ Smoke run of the PyTorch/CUDA port on one CUDA card:
     (256 x 8 x 12) and at the workload's shape (10240 x 32 x 28); rung 11
     bit-equal to K1, each world of rung 12 bit-equal to its own launch;
     per rung its time, the plain version's, its bytes, its byte bound and
-    the time of the one PyTorch call that computes it, where there is one;
-    the ladder's kernel launch count is set to 0 just before and read just
-    after;
+    the time of the one PyTorch call that computes it, where there is one
+    (rungs 1, 7 and 8), and per kernel rung its shared memory, CTAs per SM
+    and waves; a rung that stages parameter groups (2, 4-6, 9-11) also
+    runs with none staged, bit-equal to the staged launch and timed in
+    turns with it; the ladder's kernel launch count is set to 0 just
+    before and read just after;
 12. the integrator microbenchmark
     (``magicsoup_tpu_torch.performance.integrator_bench``) at its defaults
     (16384 x 32 x 28, 75% live rows, chains of 10 steps, median of 7):
@@ -294,12 +297,15 @@ after 5 and after 15, 16 and 17 after 7, 12, 18, 13 and 21 after 9, 22,
 23, 24 and 25 last.
 
 With ``--parent DIR`` the run also builds an earlier version of the
-integrator kernel from DIR (its ``magicsoup_tpu_torch/ops/
-cuda_integrate.py`` and ``csrc/integrate.cu`` with the header it
-includes, as ``git show REV:...`` writes them) and, in phases 3, 4, 8 and
-9, runs it beside this one on the same inputs: its error against the
+integrator kernel and of the ladder from DIR (its ``magicsoup_tpu_torch/
+ops/cuda_integrate.py`` and ``ops/cuda_bisect.py`` with ``csrc/
+integrate.cu``, ``csrc/bisect.cu`` and the header they include, as ``git
+show REV:...`` writes them) and, in phases 3, 4, 8 and 9, runs the
+integrator beside this one on the same inputs: its error against the
 plain version, its time (the two kernels timed in turns: earlier, this,
-this, earlier) and its host time per launch.  Nothing of the earlier
+this, earlier) and its host time per launch; in phase 11 it times the
+earlier ladder's rungs 1-11 in turns beside these at both ladder shapes,
+with their errors against the plain versions.  Nothing of the earlier
 version is held to a contract.
 
 It prints a ``{"threefry": ...}`` line, a ``{"workload": ...}`` line and
@@ -375,9 +381,10 @@ SWEEP_CELLS = 10240
 SWEEP_STACK = (3, 1024, 1280)
 #: host time per launch: launches enqueued back to back
 HOST_LAUNCHES = 200
-#: an earlier version of the integrator kernel, run beside this one
-#: (``--parent DIR``)
+#: an earlier version of the integrator kernel and of the ladder, run
+#: beside this one (``--parent DIR``)
 PARENT = None
+PARENT_LADDER = None
 #: the ladder's shapes: the JAX ladder's defaults and the workload's
 LADDER_SHAPES = ((256, 8, 12), (10240, 32, 28))
 #: the microbenchmark's points
@@ -451,7 +458,7 @@ def _build():
 
     t0 = time.perf_counter()
     builds = [cuda_integrate.build, cuda_bisect.build, cuda_prng.build]
-    builds += [PARENT.build] if PARENT else []
+    builds += [PARENT.build, PARENT_LADDER.build] if PARENT else []
     with ThreadPoolExecutor(max_workers=len(builds) + 1) as pool:
         kernels = [pool.submit(b) for b in builds]
         genome = pool.submit(engine.get_lib)
@@ -463,17 +470,19 @@ def _build():
         print(Path(f"{lib_path}.log").read_text().strip())
 
 
-def _load_parent(root: Path):
-    """The earlier integrator's wrapper module from ``root`` (its sources
-    beside it as in the package), under its own name: its library is
-    named after its own sources, its launch count is its own."""
+def _load_parent(root: Path, module: str, source: str):
+    """The earlier wrapper module ``ops/<module>.py`` from ``root`` (its
+    kernel source ``csrc/<source>`` and the header beside it as in the
+    package), under its own name: its library is named after its own
+    sources, its launch count is its own."""
     import importlib.util
 
-    path = root / "magicsoup_tpu_torch" / "ops" / "cuda_integrate.py"
-    for need in (path, path.parents[1] / "csrc" / "integrate.cu"):
+    path = root / "magicsoup_tpu_torch" / "ops" / f"{module}.py"
+    csrc = path.parents[1] / "csrc"
+    for need in (path, csrc / source, csrc / "integrate_body.cuh"):
         if not need.is_file():
             sys.exit(f"chip_smoke: --parent {root} has no {need.relative_to(root)}")
-    spec = importlib.util.spec_from_file_location("parent_cuda_integrate", path)
+    spec = importlib.util.spec_from_file_location(f"parent_{module}", path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
@@ -1436,7 +1445,8 @@ def _sweep(torch) -> dict:
 
 def _ladder(torch) -> dict:
     """K3 at LADDER_SHAPES: every rung must hold its plain version; the
-    ladder kernels' launch count over the two runs."""
+    ladder kernels' launch count over the two runs; with ``--parent``,
+    the earlier ladder's rungs 1-11 timed beside these."""
     from magicsoup_tpu_torch.ops import cuda_bisect as cb
     from magicsoup_tpu_torch.performance.kernel_bisect import run_ladder
 
@@ -1450,7 +1460,41 @@ def _ladder(torch) -> dict:
     launches = cb.launches
     if launches == 0:
         raise AssertionError("the ladder launched no kernel")
-    return {"runs": runs, "launches": launches}
+    got = {"runs": runs, "launches": launches}
+    if PARENT_LADDER is not None:
+        got["parent"] = {f"{c}x{p}x{s}": _ladder_beside_parent(torch, c, p, s)
+                         for c, p, s in LADDER_SHAPES}
+    return got
+
+
+def _ladder_beside_parent(torch, c: int, p: int, s: int) -> dict:
+    """Rungs 1-11 of this ladder and of the earlier one on the ladder's
+    inputs at (c, p, s), timed in turns (earlier, this, this, earlier);
+    the earlier rungs' errors against the plain versions, held to
+    nothing."""
+    from magicsoup_tpu_torch.interop import params_from_numpy
+    from magicsoup_tpu_torch.ops import cuda_bisect as cb
+    from magicsoup_tpu_torch.performance import cuda_median_ms
+    from magicsoup_tpu_torch.performance.kernel_bisect import KERNEL_REPS, draw_inputs
+
+    X_np, d = draw_inputs(c, p, s)
+    X = torch.from_numpy(X_np).cuda()
+    params = params_from_numpy(d, "cuda")
+    rows = {}
+    for r in cb.RUNGS:
+        new = lambda r=r: cb.run_rung(r, X, params)  # noqa: E731
+        old = lambda r=r: PARENT_LADDER.run_rung(r, X, params)  # noqa: E731
+        out = old()
+        torch.cuda.synchronize()
+        ref = cb.plain_rung(r, X, params)
+        _, err = cb.holds(cb.RUNGS[r].contract, out, ref, cb.scale(r, X, params, ref))
+        times = [cuda_median_ms(f, KERNEL_REPS) for f in (old, new, new, old)]
+        rows[r] = {"ms": (times[1] + times[2]) / 2,
+                   "parent": {"ms": (times[0] + times[3]) / 2, "ms_in_turns": times, **err}}
+        print(f"ladder {c}x{p}x{s} rung {r:2d}: {rows[r]['ms']:.4f} ms, earlier"
+              f" {rows[r]['parent']['ms']:.4f} ms (in turns {', '.join(f'{t:.4f}' for t in times)})",
+              flush=True)
+    return rows
 
 
 def _microbench(torch) -> list:
@@ -2102,6 +2146,7 @@ def _k3_entry(ladder: dict) -> dict:
     c, p, s = LADDER_SHAPES[-1]
     work = [r for r in ladder["runs"][f"{c}x{p}x{s}"] if r["rung"] <= 11]
     keys = ("name", "ms", "plain_ms", "bytes", "bound_ms", "library_ms",
+            "smem_bytes", "ctas_per_sm", "waves", "streamed_ms", "streamed_bit_equal",
             "max_abs_err", "max_rel_err", "q99_rel_err", "bit_equal_to_integrator",
             "worlds_bit_equal_to_solo", "ok")
     return {
@@ -2119,6 +2164,7 @@ def _k3_entry(ladder: dict) -> dict:
         "bound_ms": sum(r["bound_ms"] for r in work),
         "bound_by": "bytes",
         "library_ms": None,
+        **({"parent": ladder["parent"]} if "parent" in ladder else {}),
         "ok": True,
     }
 
@@ -4071,7 +4117,7 @@ def _mesh_phase(torch) -> dict:
 
 
 def main() -> None:
-    global DUMP_DIR, PARENT
+    global DUMP_DIR, PARENT, PARENT_LADDER
     import argparse
 
     parser = argparse.ArgumentParser(description="Smoke run of the port on one CUDA card.")
@@ -4092,7 +4138,8 @@ def main() -> None:
         _resume_child(torch, args.resume_child)
         return
     if args.parent is not None:
-        PARENT = _load_parent(args.parent.resolve())
+        PARENT = _load_parent(args.parent.resolve(), "cuda_integrate", "integrate.cu")
+        PARENT_LADDER = _load_parent(args.parent.resolve(), "cuda_bisect", "bisect.cu")
     _build()
     digests = _digests(torch)
     print(json.dumps({"digests": digests}))

@@ -59,7 +59,6 @@
 // shared memory -- a later step, once those shapes' times are known.
 // Tensor cores do not apply: each cell's N is its own small (p, s) matrix
 // times one vector, in f32 with exp/log between the products.
-#include <mutex>
 #include <vector>
 
 #include "integrate_body.cuh"
@@ -103,26 +102,6 @@ integrate_kernel(const float* __restrict__ X, const float* __restrict__ Ke,
   for (int pass = 0; pass < 3; ++pass)
     trim_pass(cp, w, lane, p, s, trim_factor(pass));
   for (int j = lane; j < s; j += WARP) out[j] = w.x0[j];
-}
-
-// cudaFuncSetAttribute once per kernel, device and larger size: the
-// attribute is a ceiling, so a launch that needs no more than the last one
-// set needs no call.
-template <auto Kernel>
-cudaError_t allow_kernel_smem(size_t bytes) {
-  constexpr int MAX_DEVICES = 64;
-  static std::mutex mu;
-  static size_t allowed[MAX_DEVICES] = {};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev < 0 || dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
-  std::lock_guard<std::mutex> lock(mu);
-  if (allowed[dev] >= bytes) return cudaSuccess;
-  err = cudaFuncSetAttribute(Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)bytes);
-  if (err == cudaSuccess) allowed[dev] = bytes;
-  return err;
 }
 
 template <bool RESIDENT>

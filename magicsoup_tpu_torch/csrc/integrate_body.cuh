@@ -1,7 +1,7 @@
 // The body of the reversible Michaelis-Menten signal integrator as device
 // functions, shared by the integrator kernel (integrate.cu, K1/K2) and the
-// ladder of its sub-expressions (bisect.cu, rungs 9-11 of K3), so that a
-// ladder rung runs the production code and not a copy of it.
+// ladder of its sub-expressions (bisect.cu, K3's rungs 1-11), so that a
+// ladder rung runs the production skeleton and code, not a copy of them.
 //
 // Mapping.  A CTA is one tile of TILE_C = 8 cells, one warp per cell.
 // Within a cell, each sum takes the lanes over the axis it keeps:
@@ -50,6 +50,8 @@
 #include <cuda_runtime.h>
 #include <stddef.h>
 #include <stdint.h>
+
+#include <mutex>
 
 namespace msbody {
 
@@ -273,18 +275,20 @@ __device__ __forceinline__ void stage_rows(T* dst, int ld,
   }
 }
 
-// Stage the groups of `mask` (RES_ALL when RESIDENT, so that the compiler
-// sees shared-memory pointers) for the tile whose first parameter row is
-// prow0; this warp's cell's views.  A null (p,) row tensor is not read
-// (the ladder's velocity rung passes no Ke).  Ends in __syncthreads, so
-// every thread of the CTA calls it.
-template <bool RESIDENT>
+// Stage the groups of `mask` (STAGED when RESIDENT, a constant, so that
+// the compiler sees shared-memory pointers; the integrator stages every
+// group, a ladder rung the groups it reads) for the tile whose first
+// parameter row is prow0; this warp's cell's views.  A group outside the
+// mask is not read here, and a null (p,) row tensor is not read (the
+// ladder's velocity rung passes no Ke).  Ends in __syncthreads, so every
+// thread of the CTA calls it.
+template <bool RESIDENT, int STAGED = RES_ALL>
 __device__ __forceinline__ CellPtrs stage_tile(unsigned char* smem,
                                                const Layout& L, int mask,
                                                const Globals& g,
                                                int64_t prow0, int p, int s,
                                                int warp, int lane) {
-  const int m = RESIDENT ? RES_ALL : mask;
+  const int m = RESIDENT ? STAGED : mask;
   const int rows = TILE_C * p;  // the tile's (p, s) rows, contiguous
   const int64_t ps = (int64_t)p * s;
   const int64_t prow = prow0 + warp;
@@ -497,6 +501,27 @@ __device__ __forceinline__ void trim_pass(const CellPtrs& cp,
   equilibrium_correction(cp, w, lane, p, s);
   for (int j = lane; j < s; j += WARP) w.x0[j] = w.x1[j];
   __syncwarp();
+}
+
+// cudaFuncSetAttribute once per kernel, device and larger size: the
+// attribute is a ceiling, so a launch that needs no more than the last one
+// set needs no call.  Host code, for the launchers of integrate.cu and
+// bisect.cu.
+template <auto Kernel>
+cudaError_t allow_kernel_smem(size_t bytes) {
+  constexpr int MAX_DEVICES = 64;
+  static std::mutex mu;
+  static size_t allowed[MAX_DEVICES] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
+  std::lock_guard<std::mutex> lock(mu);
+  if (allowed[dev] >= bytes) return cudaSuccess;
+  err = cudaFuncSetAttribute(Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)bytes);
+  if (err == cudaSuccess) allowed[dev] = bytes;
+  return err;
 }
 
 // The trim factor of pass 0, 1 or 2 of one integrator step.

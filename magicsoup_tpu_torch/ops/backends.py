@@ -19,8 +19,10 @@ backends:
 
 :func:`resolve` keeps the JAX package's precedence: an explicit
 ``integrator`` argument, then the ``MAGICSOUP_TPU_TORCH_INTEGRATOR`` env
-var, then the numeric mode and the device (``torch-det`` when
-deterministic; else ``cuda`` on a CUDA device, ``torch-fast`` on the CPU).
+var, then the legacy ``use_pallas`` flag (``True`` is ``cuda``, the
+counterpart of ``pallas``; ``False`` the torch body of the numeric mode),
+then the numeric mode and the device (``torch-det`` when deterministic;
+else ``cuda`` on a CUDA device, ``torch-fast`` on the CPU).
 
 Every backend serves a mesh-placed world: each rank integrates its own
 slot block, the ``cuda`` kernel with its per-tile early stop (a tile of 8
@@ -87,16 +89,27 @@ def default_backend(deterministic: bool, device_type: str) -> str:
 def resolve(
     integrator: str | None = None,
     *,
+    use_pallas: bool | None = None,
     deterministic: bool = False,
     device_type: str = "cuda",
 ) -> tuple[str, bool]:
     """Resolve the selection sources onto one backend name; returns
     ``(name, pinned)``, ``pinned`` False when the name follows from the
-    numeric mode and device only.  A choice that is not bit-reproducible
-    under deterministic mode raises ``ValueError``."""
+    numeric mode and device only.  ``integrator`` with a ``use_pallas``
+    that disagrees with it (``True`` for any backend but ``cuda``, or
+    ``False`` for ``cuda``) raises ``ValueError``, as does a choice that is
+    not bit-reproducible under deterministic mode."""
+    if integrator is not None and use_pallas is not None:
+        if bool(use_pallas) != (get_backend(integrator).name == "cuda"):
+            raise ValueError(
+                f"integrator={integrator!r} conflicts with"
+                f" use_pallas={use_pallas!r}; pass only integrator="
+            )
     choice = integrator
     if choice is None:
         choice = os.environ.get(ENV_VAR, "") or None
+    if choice is None and use_pallas is not None:
+        choice = "cuda" if use_pallas else default_backend(deterministic, "cpu")
     if choice is None:
         return default_backend(deterministic, device_type), False
     backend = get_backend(choice)

@@ -5,14 +5,16 @@ checked wrapper, its plain PyTorch version and its contract.
 
 The ladder replaces the JAX package's Pallas bisection ladder
 (``performance/pallas_bisect.py``, ``call()`` around ``pl.pallas_call``):
-rungs 1-8 are sub-expressions of the body on the integrator kernel's
-first skeleton (a warp per cell, lanes over signals, warp reductions),
-9-11 the velocity body, one trim pass and three trim passes (the
-production device functions of ``csrc/integrate_body.cuh``, on the
-integrator kernel's skeleton and launch plan).  Rungs 12-13 of the
-ladder are the production entry :func:`~magicsoup_tpu_torch.ops.
-cuda_integrate.integrate_signals_cuda` itself and live in
-:mod:`magicsoup_tpu_torch.performance.kernel_bisect`.
+rungs 1-8 are sub-expressions of the body, 9-11 the velocity body, one
+trim pass and three trim passes.  Every rung runs on one skeleton, the
+integrator kernel's own (``csrc/integrate_body.cuh``: a tile of 8 cells
+per CTA, a warp per cell, the rung's parameter groups staged into shared
+memory under the integrator's launch plan restricted to them, lanes over
+proteins for the sums over signals and over signals for the sums over
+proteins), so a rung's time is what its sub-expression costs inside the
+integrator.  Rungs 12-13 of the ladder are the production entry
+:func:`~magicsoup_tpu_torch.ops.cuda_integrate.integrate_signals_cuda`
+itself and live in :mod:`magicsoup_tpu_torch.performance.kernel_bisect`.
 
 :func:`run_rung` takes a rung number, ``X`` ``(c, s)`` and the nine
 parameter tensors ``(c, ...)``, and checks the inputs that the rung
@@ -23,6 +25,8 @@ tensors it runs the rung's plain version, :func:`plain_rung`, built from
 the helpers of :mod:`magicsoup_tpu_torch.ops.integrate` as each JAX rung
 is built from the JAX helpers.  The plain versions of rungs 10-11 run per
 tile of ``TILE_C`` cells, the unit of the kernel's early stop.
+:func:`rung_plan` is a rung's launch plan and :func:`occupancy` its CTAs
+per SM and waves on the card.
 """
 import ctypes
 import functools
@@ -35,10 +39,12 @@ import torch
 
 from magicsoup_tpu_torch._build import build_shared
 from magicsoup_tpu_torch.ops.cuda_integrate import (
+    GROUPS,
     NVCC_FLAGS,
     TILE_C,
-    launch_plan,
+    Plan,
     nvcc,
+    plan,
     smem_limit,
 )
 from magicsoup_tpu_torch.ops.integrate import (
@@ -64,6 +70,8 @@ ALL_PARAMS = CellParams._fields
 #: what the velocity body reads: every parameter but Ke, which only the
 #: equilibrium correction of a trim pass reads
 VELOCITY_PARAMS = tuple(n for n in ALL_PARAMS if n != "Ke")
+#: each parameter tensor's launch-plan group bit
+GROUP_BIT = {name: bit for names, bit in GROUPS for name in names.split("/")}
 
 
 class Rung(NamedTuple):
@@ -94,6 +102,14 @@ RUNGS = {
 }
 
 
+def group_bits(rung: int) -> int:
+    """The launch plan's groups (bits) that rung ``rung`` reads."""
+    bits = 0
+    for name in RUNGS[rung].reads:
+        bits |= GROUP_BIT[name]
+    return bits
+
+
 def build() -> Path:
     """Build the ladder's shared library (once per source and header);
     its path.  The compiler's report is kept beside it as
@@ -111,11 +127,17 @@ def _lib():
             lib.ms_bisect_rung.restype = ci
             lib.ms_bisect_smem_bytes.argtypes = [ci, ci, ci, ci]
             lib.ms_bisect_smem_bytes.restype = ctypes.c_size_t
+            lib.ms_bisect_ctas_per_sm.argtypes = [ci, ci, ci, ci, ctypes.POINTER(ci)]
+            lib.ms_bisect_ctas_per_sm.restype = ci
+            lib.ms_bisect_rung_groups.argtypes = [ci]
+            lib.ms_bisect_rung_groups.restype = ci
             lib.ms_bisect_tile_c.restype = ci
             lib.ms_bisect_error_string.argtypes = [ci]
             lib.ms_bisect_error_string.restype = ctypes.c_char_p
             if lib.ms_bisect_tile_c() != TILE_C:
                 raise RuntimeError("ladder kernel and wrapper disagree on TILE_C")
+            if any(lib.ms_bisect_rung_groups(r) != group_bits(r) for r in RUNGS):
+                raise RuntimeError("ladder kernel and wrapper disagree on the rungs' groups")
             _LIB = lib
     return _LIB
 
@@ -158,20 +180,46 @@ def _check(rung: int, X: torch.Tensor, params: CellParams) -> None:
             raise ValueError(f"{name} must be contiguous")
 
 
-def _launch(rung: int, X: torch.Tensor, params: CellParams) -> torch.Tensor:
+@functools.lru_cache(maxsize=None)
+def rung_plan(rung: int, p: int, s: int, limit: int) -> Plan:
+    """Rung ``rung``'s launch plan for (p, s) under ``limit`` bytes of
+    shared memory per CTA: the integrator's plan restricted to the groups
+    the rung reads (every group for rungs 9-11, so theirs is the
+    integrator's), held against the ladder kernel's own layout."""
+    got = plan(p, s, limit, group_bits(rung))
+    kernel_bytes = _lib().ms_bisect_smem_bytes(rung, p, s, got.mask)
+    if kernel_bytes != got.smem_bytes:
+        raise RuntimeError(
+            f"launch plan and ladder kernel disagree on the shared memory of rung {rung}"
+            f" at {p} x {s} with groups {got.resident}: {got.smem_bytes} vs {kernel_bytes} bytes"
+        )
+    return got
+
+
+def occupancy(rung: int, X: torch.Tensor, params: CellParams) -> dict:
+    """Rung ``rung`` on CUDA ``X`` ``(c, s)``: its dynamic shared memory
+    per CTA, the CTAs one SM holds at it (the CUDA occupancy calculator)
+    and the waves its grid of ``c / TILE_C`` CTAs takes on the card."""
+    c, s = X.shape
+    p = params.Ke.shape[-1]
+    how = rung_plan(rung, p, s, smem_limit(X.device.index))
+    ctas = ctypes.c_int(0)
+    with torch.cuda.device(X.device):
+        err = _lib().ms_bisect_ctas_per_sm(rung, p, s, how.mask, ctypes.byref(ctas))
+        sms = torch.cuda.get_device_properties(X.device).multi_processor_count
+    if err != 0:
+        raise RuntimeError(f"occupancy query failed: {_lib().ms_bisect_error_string(err).decode()}")
+    if ctas.value == 0:
+        raise RuntimeError(f"no CTA of ladder rung {rung} at {p} x {s} fits on an SM")
+    waves = c / TILE_C / (ctas.value * sms)
+    return {"smem_bytes": how.smem_bytes, "ctas_per_sm": ctas.value, "waves": waves}
+
+
+def _launch(rung: int, X: torch.Tensor, params: CellParams, streamed: bool) -> torch.Tensor:
     c, s = X.shape
     p = params.Ke.shape[-1]
     lib = _lib()
-    limit = smem_limit(X.device.index)
-    # rungs 9-11 run the integrator kernel's launch plan (their bytes are
-    # the plan's, which the integrator's wrapper holds against its kernel)
-    mask = launch_plan(p, s, limit).mask if rung >= 9 else 0
-    smem = lib.ms_bisect_smem_bytes(rung, p, s, mask)
-    if smem > limit:
-        raise ValueError(
-            f"{p} proteins x {s} signals need {smem} bytes of shared memory"
-            f" per tile of {TILE_C} cells; the card allows {limit}"
-        )
+    mask = 0 if streamed else rung_plan(rung, p, s, smem_limit(X.device.index)).mask
     out = torch.empty(out_shape(rung, X, params), dtype=torch.float32, device=X.device)
     reads = RUNGS[rung].reads
     ptrs = [getattr(params, n).data_ptr() if n in reads else None for n in ALL_PARAMS]
@@ -221,17 +269,22 @@ def plain_rung(rung: int, X: torch.Tensor, params: CellParams) -> torch.Tensor:
     raise ValueError(f"no ladder rung {rung} (want one of {sorted(RUNGS)})")
 
 
-def run_rung(rung: int, X: torch.Tensor, params: CellParams) -> torch.Tensor:
+def run_rung(
+    rung: int, X: torch.Tensor, params: CellParams, streamed: bool = False
+) -> torch.Tensor:
     """Rung ``rung`` (1-11) on ``X`` ``(c, s)`` and parameters
     ``(c, ...)``: one kernel launch on CUDA tensors, the plain version on
-    CPU tensors."""
+    CPU tensors.  The launch stages the rung's groups under its launch
+    plan, or with ``streamed`` none of them (every parameter read from
+    device memory, as the plan leaves a group that does not fit), which
+    changes no bit: the ladder prices the staging with it."""
     global launches
     _check(rung, X, params)
     if X.device.type == "cpu":
         return plain_rung(rung, X, params)
     if X.device.type != "cuda":
         raise ValueError(f"no ladder kernel for device {X.device}")
-    out = _launch(rung, X, params)
+    out = _launch(rung, X, params, streamed)
     launches += 1
     return out
 

@@ -133,14 +133,15 @@ def smem_bytes(p: int, s: int, mask: int) -> int:
     return n
 
 
-def plan(p: int, s: int, limit: int = SMEM_LIMIT) -> Plan:
+def plan(p: int, s: int, limit: int = SMEM_LIMIT, groups: int = ALL_RESIDENT) -> Plan:
     """The launch plan for p proteins and s signals under ``limit`` bytes
-    of shared memory per CTA: stage each group of :data:`GROUPS` in turn
-    if it still fits.  Raises :class:`SharedMemoryLimitError` when not
-    even the scratch fits."""
+    of shared memory per CTA: stage each group of :data:`GROUPS` whose bit
+    is in ``groups`` (every group for the integrator; a ladder rung's own
+    groups for the rung) in turn if it still fits.  Raises
+    :class:`SharedMemoryLimitError` when not even the scratch fits."""
     mask = 0
     for _, bit in GROUPS:
-        if smem_bytes(p, s, mask | bit) <= limit:
+        if bit & groups and smem_bytes(p, s, mask | bit) <= limit:
             mask |= bit
     need = smem_bytes(p, s, mask)
     if need > limit:

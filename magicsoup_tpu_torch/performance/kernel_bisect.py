@@ -16,8 +16,14 @@ plain version under its contract (rung 11 also bit-equal to the
 integrator kernel, each world of rung 12 bit-equal to its own one-world
 launch); then its median time over 25 launches (CUDA events), the plain
 version's, the bytes it must move (its inputs read once and its output
-written once), their time at 3.35 TB/s, and, for rungs 1 and 8, the time
-of the one PyTorch call that computes the same function.  A rung that
+written once), their time at 3.35 TB/s, for rungs 1, 7 and 8 the time of
+the one PyTorch call that computes the same function, and for the kernel
+rungs 1-11 the dynamic shared memory of a CTA, the CTAs one SM holds at
+it (the CUDA occupancy calculator) and the waves of the grid.  A kernel
+rung that stages parameter groups (2, 4-6, 9-11) also runs streamed,
+with no group staged: its output must equal the staged launch's bit for
+bit, and the two are timed in turns (staged, streamed, streamed, staged),
+which prices the staging.  A rung that
 fails prints FAIL with the first line of its error and the ladder goes on;
 the run exits 1 if any rung failed.  With ``--device cpu`` it runs the
 plain versions only (host clock).  One line per rung, then one JSON
@@ -91,6 +97,7 @@ class Step(NamedTuple):
     denom: Callable[[torch.Tensor], torch.Tensor]
     n_bytes: int
     library: Callable[[], torch.Tensor] | None
+    streamed: Callable[[], torch.Tensor] | None = None
 
 
 def _nbytes(*ts: torch.Tensor) -> int:
@@ -112,8 +119,11 @@ def steps(X: torch.Tensor, params: CellParams) -> dict[int, Step]:
             n_bytes=_nbytes(X, *read) + shape[0] * shape[1] * 4,
             library={
                 1: lambda: X * 1.000001,
+                7: lambda: torch.prod(X, -1, keepdim=True),
                 8: lambda: torch.prod(X, -1, keepdim=True),
             }.get(r),
+            streamed=(lambda r=r: cb.run_rung(r, X, params, streamed=True))
+            if cb.group_bits(r) else None,
         )
     Xb, pb = batched(X, params)
     X1, p1 = X[None], CellParams(*(t[None] for t in params))
@@ -163,7 +173,16 @@ def _run_cuda(r: int, step: Step, X: torch.Tensor, params: CellParams) -> dict:
     for v in checks.values():
         ok = ok and (all(v) if isinstance(v, list) else v)
     row.update(checks)
-    row["ms"] = cuda_median_ms(step.kernel, KERNEL_REPS)
+    if r in cb.RUNGS:
+        row.update(cb.occupancy(r, X, params))
+    if step.streamed is None:
+        row["ms"] = cuda_median_ms(step.kernel, KERNEL_REPS)
+    else:
+        row["streamed_bit_equal"] = bool(torch.equal(step.streamed(), got))
+        ok = ok and row["streamed_bit_equal"]
+        times = [cuda_median_ms(f, KERNEL_REPS)
+                 for f in (step.kernel, step.streamed, step.streamed, step.kernel)]
+        row["ms"], row["streamed_ms"] = (times[0] + times[3]) / 2, (times[1] + times[2]) / 2
     row["plain_ms"] = cuda_median_ms(step.plain, PLAIN_REPS)
     row["library_ms"] = cuda_median_ms(step.library, KERNEL_REPS) if step.library else None
     if not ok:
@@ -207,9 +226,12 @@ def run_ladder(
             row.update(ok=False, error=head)
         wall = time.perf_counter() - t0
         if row["ok"] and dev.type == "cuda":
+            occ = (f", {row['ctas_per_sm']} CTAs/SM, {row['waves']:.3f} waves"
+                   if "waves" in row else "")
+            occ += f", streamed {row['streamed_ms']:.4f} ms" if "streamed_ms" in row else ""
             log(f"rung {r:2d} OK    {wall:6.2f}s  {step.title}: {row['ms']:.4f} ms,"
                 f" plain {row['plain_ms']:.4f} ms, {row['bytes']} B, bound {row['bound_ms']:.4f} ms,"
-                f" library {row['library_ms']}")
+                f" library {row['library_ms']}{occ}")
         elif row["ok"]:
             log(f"rung {r:2d} OK    {wall:6.2f}s  {step.title}: plain version only,"
                 f" {row['plain_host_ms']:.3f} ms on the host clock (cpu)")

@@ -179,26 +179,31 @@ class World:
         batch_size: Optional chunk size when updating cell parameters.
         seed: Seed driving all randomness (placement, token maps,
             mutations).  ``None`` draws a random seed.
+        mesh: A :class:`~magicsoup_tpu_torch.parallel.tiled.Mesh`: shard
+            the world over its ranks (map rows, cell slots; module notes),
+            on ``mesh.device``.  Mutually exclusive with ``device``;
+            ``map_size`` must divide into the mesh's tiles.
         integrator: Integrator backend (``ops.backends``): ``"cuda"``,
             ``"torch-fast"`` or ``"torch-det"``; ``None`` derives it from
             the numeric mode and the device.
+        use_pallas: Legacy flag, the JAX package's spelling: ``True``
+            selects ``"cuda"`` (the counterpart of ``"pallas"``), ``False``
+            the torch integrator of the numeric mode; below
+            ``integrator`` and the env var, and ``ValueError`` when
+            ``integrator`` disagrees with it.
         phenotype_cache_size: Max entries of the genome->phenotype LRU
             cache; ``0`` disables cross-call caching.
-        genome_backend: ``"string"`` keeps genomes as a host list of
-            strings; ``"token"`` keeps them on ``device`` as a packed
-            token tensor evolved by device programs, so strings exist only
-            at the import/export boundary (spawn, ``cell_genomes``,
-            ``genome_of``).
         telemetry: JSONL sink of the telemetry recorder: ``None`` keeps a
             detached :class:`~magicsoup_tpu_torch.telemetry.TelemetryRecorder`
             (phase timings only, no file), a path attaches one to that
             file, and a recorder passes through (shared across worlds).
             A :class:`~magicsoup_tpu_torch.PipelinedStepper` over the
             world writes its dispatch and step rows to it.
-        mesh: A :class:`~magicsoup_tpu_torch.parallel.tiled.Mesh`: shard
-            the world over its ranks (map rows, cell slots; module notes),
-            on ``mesh.device``.  Mutually exclusive with ``device``;
-            ``map_size`` must divide into the mesh's tiles.
+        genome_backend: ``"string"`` keeps genomes as a host list of
+            strings; ``"token"`` keeps them on ``device`` as a packed
+            token tensor evolved by device programs, so strings exist only
+            at the import/export boundary (spawn, ``cell_genomes``,
+            ``genome_of``).
 
     State is exposed with the reference's names — ``cell_genomes``,
     ``cell_labels``, ``cell_map``, ``cell_positions``, ``cell_lifetimes``,
@@ -222,11 +227,12 @@ class World:
         device: str | torch.device | None = None,
         batch_size: int | None = None,
         seed: int | None = None,
-        integrator: str | None = None,
-        phenotype_cache_size: int = 16384,
-        genome_backend: str = "string",
-        telemetry=None,
         mesh=None,
+        integrator: str | None = None,
+        use_pallas: bool | None = None,
+        phenotype_cache_size: int = 16384,
+        telemetry=None,
+        genome_backend: str = "string",
     ):
         from magicsoup_tpu_torch.telemetry import TelemetryRecorder
 
@@ -258,6 +264,7 @@ class World:
         self.deterministic = default_deterministic()
         choice, pinned = _backends.resolve(
             integrator,
+            use_pallas=use_pallas,
             deterministic=self.deterministic,
             device_type=self.device.type,
         )
@@ -989,6 +996,12 @@ class World:
         if self._integrator_choice is not None:
             return self._integrator_choice
         return _backends.default_backend(self.deterministic, self.device.type)
+
+    @property
+    def use_pallas(self) -> bool:
+        """Legacy spelling of ``integrator == "cuda"``, the counterpart of
+        the JAX package's ``integrator == "pallas"`` (read-only)."""
+        return self.integrator == "cuda"
 
     def integrator_inputs(self) -> tuple[torch.Tensor, CellParams]:
         """What the next :meth:`enzymatic_activity` hands the integrator:

@@ -126,6 +126,8 @@ def test_plain_rung_holds_the_jax_rung(ladder, rung):
     step = steps[rung]
     before = cb.launches, ci.launches
     out = step.kernel()  # on CPU tensors: the plain version, no launch
+    if step.streamed is not None:  # rungs that stage a group: 2, 4-6, 9-11
+        assert cb.group_bits(rung) and torch.equal(step.streamed(), out)
     assert (cb.launches, ci.launches) == before
     assert torch.equal(out, step.plain())
     ref = torch.from_numpy(np.asarray(_jax_rung(rung, jX, jq)))
@@ -185,6 +187,18 @@ def test_rung_reads_only_what_it_declares(ladder, rung):
     assert steps[rung].n_bytes == kb._nbytes(X, *(getattr(params, n) for n in reads)) + (
         cb.out_shape(rung, X, params)[0] * cb.out_shape(rung, X, params)[1] * 4
     )
+    # the kernel stages only the launch plan's groups that the rung reads,
+    # wherever the card's shared memory lets the plan stage them
+    bits = cb.group_bits(rung)
+    assert all(cb.GROUP_BIT[n] & bits for n in reads)
+    for limit in (ci.SMEM_LIMIT, ci.smem_bytes(P, S, bits), ci.smem_bytes(P, S, 0)):
+        how = ci.plan(P, S, limit, bits)
+        staged = {n for n in cb.ALL_PARAMS if cb.GROUP_BIT[n] & how.mask}
+        assert how.mask & ~bits == 0 and how.smem_bytes == ci.smem_bytes(P, S, how.mask)
+        # a staged group of (p,) rows whose tensor the rung does not read
+        # (rung 9's Ke) is passed as a null pointer and not copied
+        assert staged - set(reads) <= ({"Ke"} if rung == 9 else set())
+    assert ci.plan(P, S, ci.SMEM_LIMIT, bits).mask == bits  # all fit at the ladder's shape
     if rung == 9:
         assert "Ke" not in reads and len(reads) == 8
     if rung >= 10:

@@ -10,10 +10,11 @@ tile's vote, the world stride -- is tested without a card, and the C
 side's shared-memory bytes against the Python launch plan's.
 
 glibc's expf/logf round differently from the card's, so the outputs are
-held to the fast contract; bits are compared only between launches of
-the emulated kernel (every residency mask, each world against its own
-launch, each group of a grouped launch against its own launch, rung 11
-against the kernel).  The threefry kernel's work is
+held to the fast contract (the ladder's rungs to their own contracts);
+bits are compared only between launches of the emulated kernels (every
+residency mask, each world against its own launch, each group of a
+grouped launch against its own launch, each ladder rung across the masks
+the launch plan can pick for its groups, rung 11 against the kernel).  The threefry kernel's work is
 integer only, so it is held bit-equal to its plain version
 (``ops/prng.py``): both output modes, several keys, counts that are not
 a multiple of the block, and one element.  On the card chip_smoke.py
@@ -79,6 +80,8 @@ def libs(tmp_path_factory):
     bisect.ms_bisect_rung.restype = cint
     bisect.ms_bisect_smem_bytes.argtypes = [cint] * 4
     bisect.ms_bisect_smem_bytes.restype = size
+    bisect.ms_bisect_rung_groups.argtypes = [cint]
+    bisect.ms_bisect_rung_groups.restype = cint
     return integrate, bisect
 
 
@@ -131,7 +134,12 @@ def test_kernel_layout_is_the_launch_plans(libs, p, s):
     integrate, bisect = libs
     for mask in range(ci.ALL_RESIDENT + 1):
         assert integrate.ms_integrate_smem_bytes(p, s, mask) == ci.smem_bytes(p, s, mask)
-        assert bisect.ms_bisect_smem_bytes(11, p, s, mask) == ci.smem_bytes(p, s, mask)
+        for rung in cb.RUNGS:  # every rung on the integrator's layout
+            assert bisect.ms_bisect_smem_bytes(rung, p, s, mask) == ci.smem_bytes(p, s, mask)
+    for rung in cb.RUNGS:
+        assert bisect.ms_bisect_rung_groups(rung) == cb.group_bits(rung)
+        how = ci.plan(p, s, ci.SMEM_LIMIT, cb.group_bits(rung))
+        assert bisect.ms_bisect_smem_bytes(rung, p, s, how.mask) == how.smem_bytes
 
 
 @pytest.mark.parametrize("c,p,s", SHAPES, ids=[f"c{c}-p{p}-s{s}" for c, p, s in SHAPES])
@@ -199,21 +207,45 @@ def test_emulated_grouped_launch_equals_each_groups_own_launch(libs):
         assert torch.equal(out, _run(libs[0], X, params, ci.ALL_RESIDENT))
 
 
-def test_emulated_ladder_rungs_hold_their_plain_versions(libs):
-    X_np, d = kb.draw_inputs(64, 8, 12)  # the ladder's own inputs
+def _rung_masks(rung: int, p: int, s: int) -> list[int]:
+    """The residency masks the launch plan can pick for the rung's groups:
+    the masks K1's emulation test walks, restricted to the rung's."""
+    bits = cb.group_bits(rung)
+    masks = {m & bits for m in (ci.plan(p, s).mask, 0, 1 | 2 | 32, 8 | 16, ci.ALL_RESIDENT)}
+    return sorted(m for m in masks if ci.smem_bytes(p, s, m) <= ci.SMEM_LIMIT)
+
+
+def _run_rung(lib, rung: int, X, params, mask: int) -> tuple[int, torch.Tensor]:
+    """The emulated rung, with no pointer for a tensor the rung does not
+    read, as the wrapper passes them (so staging one would fault)."""
+    (c, s), p = X.shape, params.Ke.shape[-1]
+    out = torch.empty(cb.out_shape(rung, X, params), dtype=torch.float32)
+    ptrs = [t.data_ptr() if name in cb.RUNGS[rung].reads else None
+            for name, t in zip(cb.ALL_PARAMS, params)]
+    return lib.ms_bisect_rung(rung, X.data_ptr(), *ptrs, out.data_ptr(), c, p, s, mask, None), out
+
+
+@pytest.mark.parametrize("c,p,s", SHAPES, ids=[f"c{c}-p{p}-s{s}" for c, p, s in SHAPES])
+def test_emulated_ladder_rungs_hold_their_plain_versions(libs, c, p, s):
+    X_np, d = kb.draw_inputs(c, p, s)  # the ladder's own inputs
     X, params = torch.from_numpy(X_np), params_from_numpy(d, "cpu")
-    mask = ci.plan(8, 12).mask
-    k1 = _run(libs[0], X[None], CellParams(*(t[None] for t in params)), mask)[0]
     for rung in cb.RUNGS:
-        out = torch.empty(cb.out_shape(rung, X, params), dtype=torch.float32)
-        # as the wrapper passes them: no pointer for a tensor the rung does not read
-        ptrs = [t.data_ptr() if name in cb.RUNGS[rung].reads else None
-                for name, t in zip(cb.ALL_PARAMS, params)]
-        assert libs[1].ms_bisect_rung(rung, X.data_ptr(), *ptrs, out.data_ptr(), 64, 8, 12, mask, None) == 0
         ref = cb.plain_rung(rung, X, params)
-        ok, err = cb.holds(cb.RUNGS[rung].contract, out, ref, cb.scale(rung, X, params, ref))
-        assert ok, (rung, err)
-    assert torch.equal(out, k1)  # rung 11 runs the kernel's body
+        masks = _rung_masks(rung, p, s) if rung <= 8 else [ci.plan(p, s).mask]
+        outs = []
+        for mask in masks:
+            err, out = _run_rung(libs[1], rung, X, params, mask)
+            assert err == 0, (rung, mask)
+            ok, got = cb.holds(cb.RUNGS[rung].contract, out, ref, cb.scale(rung, X, params, ref))
+            assert ok, (rung, mask, got)
+            outs.append(out)
+        assert all(torch.equal(o, outs[0]) for o in outs[1:]), rung  # residency changes no bit
+        # a mask with a group the rung does not read is refused
+        for other in (1, 8, 16):
+            if other & ~cb.group_bits(rung):
+                assert _run_rung(libs[1], rung, X, params, other)[0] != 0, (rung, other)
+    k1 = _run(libs[0], X[None], CellParams(*(t[None] for t in params)), ci.plan(p, s).mask)[0]
+    assert torch.equal(outs[0], k1)  # rung 11 runs the kernel's body
 
 
 @pytest.fixture(scope="module")
