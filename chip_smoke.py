@@ -290,11 +290,31 @@ Smoke run of the PyTorch/CUDA port on one CUDA card:
     the records' mass lanes may differ).  (e) A one-rank NCCL mesh: a
     probe of the backend, then (a)'s runs, bit-equal to the single-device
     ones.  A ``{"meshes": ...}`` line; the mesh
-    launches join the K1, K2 and threefry entries.
+    launches join the K1, K2 and threefry entries;
+26. the analysis plane and the warm-up API (``magicsoup_tpu_torch.analysis``):
+    (a) windows under ``hot_path_guard(compile_budget=0,
+    transfers="disallow")`` at full width, with nothing dying, dividing,
+    spawning or mutating (the JAX package's steady-state guard test): the
+    string stepper at K = 1 and K = 4 (5 dispatches and ``drain()`` each
+    after a warm-up), the 4-world fleet and a fused fleet of two 10k
+    worlds on 128² and one on 256² (2 fleet steps and ``drain()`` each);
+    each compiles nothing, synchronizes nowhere and launches K1/K2 once
+    per simulated step (the fused one grouped once per fleet step), and an
+    ``.item()`` inside a window raises while a sanctioned fetch passes;
+    (b) the token stepper at K = 1 with phase 16's selection under
+    ``transfers="log"``, its synchronizing calls counted by site; (c) in
+    two fresh processes (``--warm-child``), a fresh 10k world's first
+    activity cold, and after ``prewarm_activity()`` + ``wait_warm()``
+    (state digest unchanged) under ``hot_path_guard(0)``, with their
+    times; (d) ``integrate_signals_steps(..., 3, det=True)`` on 256 rows of
+    the world's state, bit-equal to the CPU's; (e) ``python -m
+    magicsoup_tpu_torch.analysis --check`` exits 0 (run beside the
+    rest).  A ``{"analysis": ...}`` line; its launches join the K1, K2,
+    grouped and threefry entries.
 
 Phases 10, 11 and 14 run right after the build, 15 after 5, 19 and 20
 after 5 and after 15, 16 and 17 after 7, 12, 18, 13 and 21 after 9, 22,
-23, 24 and 25 last.
+23, 24 and 25 after them, 26 last.
 
 With ``--parent DIR`` the run also builds an earlier version of the
 integrator kernel and of the ladder from DIR (its ``magicsoup_tpu_torch/
@@ -316,7 +336,7 @@ a ``{"token_workload": ...}`` line, ``{"persistence": ...}`` and
 K2 lines, the digests, sweep, ladder, microbenchmark and det lines, a
 ``{"differential": ...}`` line, a ``{"guard": ...}`` line, a
 ``{"fused_fleet": ...}`` line, a ``{"serve": ...}`` line, a
-``{"meshes": ...}`` line, the whole run's
+``{"meshes": ...}`` line, an ``{"analysis": ...}`` line, the whole run's
 seconds, a ``{"kernels": [...]}`` line (K1, K2, the grouped launch, K3,
 threefry), the card's name and power limit, and as its
 last line ``{"ok": true, "device": {...}}``.  Any failure raises, and the
@@ -4116,6 +4136,337 @@ def _mesh_phase(torch) -> dict:
     return out
 
 
+# --------------------------------------------------------------------- #
+# phase 26: the analysis plane and the warm-up API on the card          #
+# --------------------------------------------------------------------- #
+#: the guarded windows: warm-up dispatches, then the guarded ones
+ANALYSIS_WARMUP = 8
+ANALYSIS_STEPS = 5
+ANALYSIS_FLEET_WARMUP = 4
+ANALYSIS_FLEET_STEPS = 2
+#: the fused fleet: two worlds on the headline map and one on a map twice
+#: as wide (two rung groups, as tests/fast/test_fleet.py's fused fleet)
+ANALYSIS_FUSED = ((SEED, MAP_SIZE), (SEED + 1, MAP_SIZE), (SEED + 2, 2 * MAP_SIZE))
+#: rows of the world's state the det steps run on (the CPU side runs the
+#: det integrator single-threaded)
+ANALYSIS_DET_ROWS = 256
+ANALYSIS_DET_STEPS = 3
+ANALYSIS_DIR = ROOT / "build" / "chip_smoke_analysis"
+#: the headline selection with nothing dying, dividing, spawning or
+#: mutating, as the JAX package's steady-state guard test runs it
+QUIET_KW = dict(STEPPER_KW, kill_below=-1.0, divide_above=1e30, divide_cost=0.0,
+                target_cells=None, p_mutation=0.0, p_recombination=0.0)
+
+
+def _zero_launches():
+    from magicsoup_tpu_torch.ops import cuda_integrate as ci
+    from magicsoup_tpu_torch.ops import cuda_prng
+
+    ci.launches = ci.grouped_launches = cuda_prng.launches = 0
+
+
+def _launch_counts() -> dict:
+    from magicsoup_tpu_torch.ops import cuda_integrate as ci
+    from magicsoup_tpu_torch.ops import cuda_prng
+
+    return {"k1_k2": ci.launches, "grouped": ci.grouped_launches, "threefry": cuda_prng.launches}
+
+
+def _guarded(torch, label: str, run, want: dict) -> dict:
+    """``run()`` under ``hot_path_guard(compile_budget=0,
+    transfers="disallow")`` with the launch counts set to 0 just before:
+    it must compile nothing, synchronize nowhere and launch ``want``."""
+    from magicsoup_tpu_torch.analysis import runtime
+
+    torch.cuda.synchronize()
+    _zero_launches()
+    t0 = time.perf_counter()
+    with runtime.hot_path_guard(compile_budget=0, transfers="disallow") as stats:
+        run()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    got = _launch_counts()
+    if any(got[k] != v for k, v in want.items()):
+        raise AssertionError(f"{label}: launches {got}, want {want}")
+    return {"compiles": stats.compiles, "window_s": dt, "launches": got}
+
+
+def _guarded_stepper(torch, world, k: int) -> dict:
+    import magicsoup_tpu_torch as mt
+
+    st = mt.PipelinedStepper(world, megastep=k, **QUIET_KW)
+    for _ in range(-(-ANALYSIS_WARMUP // k)):
+        st.step()
+    st.drain()
+
+    def run():
+        for _ in range(ANALYSIS_STEPS):
+            st.step()
+        st.drain()
+
+    got = _guarded(torch, f"guarded stepper K{k}", run, {"k1_k2": ANALYSIS_STEPS * k})
+    st.flush()
+    _check_state(world, f"guarded stepper K{k}")
+    return dict(got, megastep=k, dispatches=ANALYSIS_STEPS)
+
+
+def _guarded_fleet(torch, worlds, fusion: str, block: int) -> dict:
+    import magicsoup_tpu_torch as mt
+
+    fleet = mt.FleetScheduler(block=block, fusion=fusion)
+    for w in worlds:
+        fleet.admit(w, **dict(QUIET_KW, megastep=1))
+    for _ in range(ANALYSIS_FLEET_WARMUP):
+        fleet.step()
+    fleet.drain()
+
+    def run():
+        for _ in range(ANALYSIS_FLEET_STEPS):
+            fleet.step()
+        fleet.drain()
+
+    n_groups = len([g for sib in fleet._groups.values() for g in sib])
+    want = ({"grouped": ANALYSIS_FLEET_STEPS, "k1_k2": 0} if fusion == "fleet"
+            else {"k1_k2": n_groups * ANALYSIS_FLEET_STEPS})
+    got = _guarded(torch, f"guarded fleet ({fusion})", run, want)
+    fleet.flush()
+    for i, w in enumerate(worlds):
+        _check_state(w, f"guarded fleet ({fusion}) world {i}")
+    return dict(got, worlds=len(worlds), groups=n_groups, fleet_steps=ANALYSIS_FLEET_STEPS)
+
+
+def _sync_item_control(torch) -> dict:
+    """The guard is live: ``.item()`` inside a window raises, a sanctioned
+    fetch passes, and the mode found is back after the window."""
+    from magicsoup_tpu_torch.analysis import runtime
+
+    x = torch.arange(8, dtype=torch.float32, device="cuda")
+    raised = None
+    with runtime.hot_path_guard(compile_budget=0, transfers="disallow"):
+        try:
+            x.sum().item()
+        except RuntimeError as exc:
+            raised = str(exc).splitlines()[0]
+        fetched = float(runtime.sanctioned_transfer(x).sum())
+    if raised is None or fetched != 28.0:
+        raise AssertionError(f"the guard is not live: .item() raised {raised!r}, fetch {fetched}")
+    if torch.cuda.get_sync_debug_mode() != 0:
+        raise AssertionError("the guard left the sync debug mode set")
+    return {"item_raised": raised, "sanctioned_fetch_passed": True}
+
+
+def _token_sync_log(torch) -> dict:
+    """The token stepper at K 1 with phase 16's selection (deaths,
+    divisions, spawns and the token mutation programs on) under
+    ``transfers="log"``: every synchronizing call it makes warns; they
+    are counted, by where they come from.  Compiles are recorded, not
+    budgeted (growth and compaction may meet new shapes)."""
+    import warnings
+
+    import magicsoup_tpu_torch as mt
+    from magicsoup_tpu_torch.analysis import runtime
+
+    world, _ = _workload(torch, genome_backend="token")
+    st = mt.PipelinedStepper(world, megastep=1, **STEPPER_KW)
+    for _ in range(STEPPER_WARMUP):
+        st.step()
+    st.drain()
+    torch.cuda.synchronize()
+    _zero_launches()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        with runtime.hot_path_guard(compile_budget=10**6, transfers="log") as stats:
+            for _ in range(ANALYSIS_STEPS):
+                st.step()
+            st.drain()
+    torch.cuda.synchronize()
+    launches = _launch_counts()
+    syncs: dict[str, int] = {}
+    for w in caught:
+        if "synchroniz" in str(w.message):
+            where = f"{Path(w.filename).relative_to(ROOT) if Path(w.filename).is_relative_to(ROOT) else w.filename}:{w.lineno}"
+            syncs[where] = syncs.get(where, 0) + 1
+    st.flush()
+    _check_state(world, "token stepper under transfers=log")
+    if launches["k1_k2"] != ANALYSIS_STEPS:
+        raise AssertionError(f"token stepper under transfers=log: launches {launches}")
+    return {"steps": ANALYSIS_STEPS, "compiles": stats.compiles, "launches": launches,
+            "sync_calls": sum(syncs.values()), "sync_calls_by_site": syncs}
+
+
+def _warm_child(torch, out: Path) -> None:
+    """One fresh process of phase 26 (c) (``--warm-child OUT``): a fresh
+    headline world's first activity, cold (``OUT`` named ``cold.json``) or
+    after ``prewarm_activity()`` + ``wait_warm()``, which must leave its
+    state digest unchanged, under ``hot_path_guard(0)``."""
+    from magicsoup_tpu_torch.analysis import runtime
+    from magicsoup_tpu_torch.check.differential import state_digest
+
+    torch.zeros(1, device="cuda").sum()
+    torch.cuda.synchronize()  # the CUDA context, outside every timing
+    world, spawn_s = _workload(torch)
+    report = {"spawn_s": spawn_s, "n_cells": world.n_cells}
+    if out.stem == "warm":
+        d0 = state_digest(world)
+        _zero_launches()
+        c0 = runtime.compile_count()
+        t0 = time.perf_counter()
+        world.prewarm_activity()
+        world.wait_warm()
+        torch.cuda.synchronize()
+        report["prewarm_s"] = time.perf_counter() - t0
+        report["prewarm_compiles"] = runtime.compile_count() - c0
+        report["prewarm_launches"] = _launch_counts()["k1_k2"]
+        if state_digest(world) != d0:
+            raise AssertionError("prewarm_activity changed the world's state")
+        report["digest_unchanged"] = True
+    _zero_launches()
+    c0 = runtime.compile_count()
+    t0 = time.perf_counter()
+    if out.stem == "warm":
+        with runtime.hot_path_guard(compile_budget=0, transfers="disallow") as stats:
+            world.enzymatic_activity()
+        report["guard_compiles"] = stats.compiles
+    else:
+        world.enzymatic_activity()
+    torch.cuda.synchronize()
+    report["first_activity_s"] = time.perf_counter() - t0
+    report["first_activity_compiles"] = runtime.compile_count() - c0
+    report["first_activity_launches"] = _launch_counts()["k1_k2"]
+    _check_state(world, f"{out.stem} world's first activity")
+    report["jax_loaded"] = "jax" in sys.modules or "magicsoup_tpu" in sys.modules
+    out.write_text(json.dumps(report))
+
+
+def _warm_up_children() -> dict:
+    """Phase 26 (c): the cold and the warmed first activity, each in a
+    fresh process (this one's shapes are warm from the earlier phases)."""
+    import subprocess
+
+    ANALYSIS_DIR.mkdir(parents=True, exist_ok=True)
+    got = {}
+    for mode in ("cold", "warm"):
+        out = ANALYSIS_DIR / f"{mode}.json"
+        out.unlink(missing_ok=True)
+        proc = subprocess.run(
+            [sys.executable, str(Path(__file__).resolve()), "--warm-child", str(out)],
+            capture_output=True, text=True, timeout=300,
+        )
+        if proc.returncode != 0:
+            raise AssertionError(f"the {mode} warm-up process failed:\n{proc.stdout[-3000:]}"
+                                 f"\n{proc.stderr[-6000:]}")
+        got[mode] = json.loads(out.read_text())
+        if got[mode].pop("jax_loaded"):
+            raise AssertionError(f"the {mode} warm-up process imported JAX")
+    warm, cold = got["warm"], got["cold"]
+    if warm["guard_compiles"] != 0 or warm["prewarm_launches"] < 1 or not warm["digest_unchanged"]:
+        raise AssertionError(f"prewarm_activity: {warm}")
+    if cold["first_activity_compiles"] < 1 or cold["first_activity_launches"] != 1:
+        raise AssertionError(f"the cold world's first activity: {cold}")
+    return got
+
+
+def _det_steps(torch, world) -> dict:
+    """Phase 26 (d): ``integrate_signals_steps(..., 3, det=True)`` on the
+    world's state (its first live rows) on the card, bit-equal to the same
+    on the CPU."""
+    import numpy as np
+
+    from magicsoup_tpu_torch.ops.integrate import CellParams, integrate_signals_steps
+
+    X, params = world.integrator_inputs()
+    rows = min(ANALYSIS_DET_ROWS, X.shape[0])
+    X, params = X[:rows].contiguous(), CellParams(*(t[:rows].contiguous() for t in params))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    card = integrate_signals_steps(X, params, ANALYSIS_DET_STEPS, det=True)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    X_cpu = X.cpu()
+    t0 = time.perf_counter()
+    cpu = integrate_signals_steps(
+        X_cpu, CellParams(*(t.cpu() for t in params)), ANALYSIS_DET_STEPS, det=True
+    )
+    cpu_s = time.perf_counter() - t0
+    if not torch.equal(X.cpu(), X_cpu):
+        raise AssertionError("integrate_signals_steps changed its input")
+    card_np, cpu_np = card.cpu().numpy(), cpu.numpy()
+    if not np.array_equal(card_np, cpu_np):
+        n = int((card_np != cpu_np).any(axis=1).sum())
+        raise AssertionError(f"det integrate_signals_steps: {n} rows differ between card and CPU")
+    if not (np.isfinite(card_np).all() and (card_np >= 0).all()):
+        raise AssertionError("det integrate_signals_steps: not finite and >= 0")
+    return {"rows": rows, "steps": ANALYSIS_DET_STEPS, "bit_equal_to_cpu": True,
+            "card_s": card_s, "cpu_s": cpu_s, "sha256": _sha256(card)}
+
+
+def _lint_gate():
+    """Phase 26 (e): ``python -m magicsoup_tpu_torch.analysis --check``,
+    started in the background; the returned callable waits for it."""
+    import subprocess
+
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "magicsoup_tpu_torch.analysis", "--check"],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=ROOT,
+    )
+
+    def result() -> dict:
+        try:
+            out, err = proc.communicate(timeout=300)
+        finally:
+            proc.kill()
+        if proc.returncode != 0:
+            raise AssertionError(f"graftlint --check failed:\n{out[-4000:]}{err[-2000:]}")
+        return {"rc": proc.returncode, "seconds": time.perf_counter() - t0,
+                "summary": out.strip().splitlines()[-2:]}
+
+    return result
+
+
+def _analysis_phase(torch) -> tuple[dict, dict]:
+    """Phase 26: the analysis plane and the warm-up API on the card; returns
+    its record and the launches per kernel."""
+    t0 = time.perf_counter()
+    lint = _lint_gate()
+    control = _sync_item_control(torch)
+    world, _ = _workload(torch)
+    windows = {"stepper_K1": _guarded_stepper(torch, world, 1),
+               "stepper_K4": _guarded_stepper(torch, world, 4)}
+    det = _det_steps(torch, world)
+    del world
+    worlds = [_workload(torch, seed=SEED + i)[0] for i in range(FLEET_WORLDS)]
+    windows["fleet"] = _guarded_fleet(torch, worlds, "rung", FLEET_WORLDS)
+    del worlds
+    worlds = [_workload(torch, seed=s, map_size=m)[0] for s, m in ANALYSIS_FUSED]
+    windows["fused_fleet"] = _guarded_fleet(torch, worlds, "fleet", 2)
+    del worlds
+    for name, w in windows.items():
+        if w["compiles"] != 0:
+            raise AssertionError(f"guarded window {name}: {w['compiles']} compiles")
+    token = _token_sync_log(torch)
+    warm_up = _warm_up_children()
+    lint = lint()
+    launches = {
+        "k1": {"prewarm": warm_up["warm"]["prewarm_launches"],
+               "first_activity": {m: warm_up[m]["first_activity_launches"] for m in warm_up}},
+        "k2": {name: w["launches"]["k1_k2"] for name, w in windows.items() if name != "fused_fleet"}
+              | {"token_stepper_K1": token["launches"]["k1_k2"]},
+        "grouped": windows["fused_fleet"]["launches"]["grouped"],
+        "threefry": {name: w["launches"]["threefry"] for name, w in windows.items()}
+                    | {"token_stepper_K1": token["launches"]["threefry"]},
+    }
+    return {
+        "item_control": control,
+        "guarded_windows": windows,
+        "token_stepper_log": token,
+        "warm_up": warm_up,
+        "det_steps": det,
+        "lint": lint,
+        "wall_s": time.perf_counter() - t0,
+    }, launches
+
+
 def main() -> None:
     global DUMP_DIR, PARENT, PARENT_LADDER
     import argparse
@@ -4129,13 +4480,17 @@ def main() -> None:
         "--parent", metavar="DIR", type=Path,
         help="also run the integrator kernel of an earlier tree unpacked in DIR beside this one",
     )
-    # phase 22's fresh process, started by the run itself
+    # the fresh processes of phases 22 and 26, started by the run itself
     parser.add_argument("--resume-child", metavar="JOBS", type=Path, help=argparse.SUPPRESS)
+    parser.add_argument("--warm-child", metavar="OUT", type=Path, help=argparse.SUPPRESS)
     args = parser.parse_args()
     DUMP_DIR = args.dump
     torch = _environment()
     if args.resume_child is not None:
         _resume_child(torch, args.resume_child)
+        return
+    if args.warm_child is not None:
+        _warm_child(torch, args.warm_child)
         return
     if args.parent is not None:
         PARENT = _load_parent(args.parent.resolve(), "cuda_integrate", "integrate.cu")
@@ -4267,6 +4622,12 @@ def main() -> None:
         "sharded_fleet_per_rank": [r["launches"] for r in meshes["sharded_fleet"]["fast"]],
     }
 
+    analysis, analysis_launches = _analysis_phase(torch)
+    print(json.dumps({"analysis": analysis}))
+    kernel["analysis_launches"] = analysis_launches["k1"]
+    k2["analysis_launches"] = analysis_launches["k2"]
+    grouped["analysis_launches"] = analysis_launches["grouped"]
+
     from magicsoup_tpu_torch.performance import card_line
 
     card = card_line()
@@ -4282,6 +4643,7 @@ def main() -> None:
         "mesh_headline_per_rank": [r["classic"]["threefry"] + r["stepper"]["threefry"]
                                    for r in head],
         "mesh_det_gloo_rank0": sum(v["threefry"] for v in meshes["det_gloo"].values()),
+        "analysis_windows": analysis_launches["threefry"],
     }
     print(json.dumps({"run": {"wall_s": time.perf_counter() - RUN_T0}}))
     print(json.dumps({"kernels": [kernel, k2, grouped, _k3_entry(ladder),

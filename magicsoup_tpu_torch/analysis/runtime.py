@@ -10,11 +10,16 @@ counters rows of a telemetry stream hold every counted failure.
 
 - ``compiles`` (:func:`compile_count`) counts what a cold shape costs in
   eager PyTorch, where nothing is traced: each native library build that
-  ran a compiler (``_build.build_shared``: nvcc or g++), and each fleet
-  dispatch at a program shape this process has not dispatched before
-  (rung key, group block, megastep and the fused set), where the caching
-  allocator grows to a new working set.  A warm rung charges 0, a cold
-  one at least 1.  ``persistent_cache_hits`` / ``persistent_cache_misses``
+  ran a compiler (``_build.build_shared``: nvcc or g++), and each program
+  shape this process runs for the first time where the JAX package's jit
+  would trace — a world's activity at a new ``(q, has_col, max_proteins,
+  max_doms)`` (the JAX ``_activity_variant_key``, plus the device, the
+  integrator and the signal count), a stepper dispatch at a new ``(q,
+  megastep, compact)`` (plus the capacity and the token capacities), a
+  fleet dispatch at a new rung key and group block or fused set — where
+  the caching allocator grows to a new working set and a kernel sets its
+  shared-memory size.  A warm shape charges 0, a cold one at least 1;
+  ``World.prewarm_activity`` warms a shape without a step.  ``persistent_cache_hits`` / ``persistent_cache_misses``
   count the build cache's outcomes: a library found already built on disk
   is a hit, a compiler run a miss;
 - ``restack_full`` / ``restack_inserts`` / ``restack_skipped`` count the
@@ -48,7 +53,20 @@ counters rows of a telemetry stream hold every counted failure.
   that phenotype caches dropped when they were pickled (a world saved
   and restored starts with an empty cache, so its first step translates
   every genome again: a cost, not a change of bits).
+
+The guard half (:func:`hot_path_guard`, :class:`GuardStats`,
+:class:`CompileBudgetExceeded`, :func:`sanctioned_transfer`) turns the
+census into test-time assertions, with the JAX package's names, defaults
+and messages.  Its transfer half is ``torch.cuda.set_sync_debug_mode``,
+which is process-wide where ``jax.transfer_guard`` is per thread:
+``util.fetch_host`` lifts the mode for its own copy (as
+``jax.device_get`` passes a transfer guard), so while a sanctioned fetch
+is in flight on any thread, a sync elsewhere passes unseen.  Without a
+CUDA device the transfer half is inert (torch's sync debug mode only sees
+CUDA syncs); the compile half works everywhere.  This module imports
+neither torch nor jax: the guard reaches torch through ``util``.
 """
+import contextlib
 import threading
 
 _lock = threading.Lock()
@@ -107,6 +125,74 @@ def note_program_shape(key) -> None:
         if key not in _shapes_seen:
             _shapes_seen.add(key)
             _compiles += 1
+
+
+class GuardStats:
+    """Filled in when the guard window closes."""
+
+    def __init__(self) -> None:
+        self.compiles: int | None = None
+
+
+class CompileBudgetExceeded(AssertionError):
+    pass
+
+
+#: hot_path_guard's ``transfers`` -> torch's sync debug mode (None keeps
+#: the mode the window found)
+_TRANSFER_MODES = {"disallow": "error", "log": "warn", "allow": None}
+
+
+@contextlib.contextmanager
+def hot_path_guard(compile_budget: int = 0, transfers: str = "disallow"):
+    """Guard a hot-path window: no implicit transfers, at most
+    ``compile_budget`` new program compilations.
+
+    Budget choice: warm the functions under test FIRST (run one step of
+    every variant the window will use), then wrap the steady-state loop
+    with ``compile_budget=0`` — the steady state of a well-formed step
+    loop compiles nothing.  A window that legitimately compiles (e.g. a
+    capacity regrow) gets exactly that many, pinned, so growth is a
+    reviewed decision rather than silent churn.
+
+    ``transfers`` maps onto ``torch.cuda.set_sync_debug_mode``:
+    ``"disallow"`` makes a synchronizing CUDA call (``.item()``,
+    ``.cpu()``, ``torch.nonzero``, a pageable host->device copy...)
+    raise, ``"log"`` warns, ``"allow"`` keeps the mode found.  The mode
+    found is restored on exit, also on an exception.
+    """
+    if transfers not in _TRANSFER_MODES:
+        raise ValueError(
+            f"transfers={transfers!r}: expected one of {sorted(_TRANSFER_MODES)}"
+        )
+    from magicsoup_tpu_torch import util as _util
+
+    stats = GuardStats()
+    start = compile_count()
+    live = _util.push_sync_mode(_TRANSFER_MODES[transfers])
+    try:
+        yield stats
+    finally:
+        held = _util.pop_sync_mode() if live else True
+    if not held:
+        raise AssertionError(
+            "the CUDA sync debug mode changed inside the hot-path window, "
+            "so part of it ran unguarded"
+        )
+    stats.compiles = compile_count() - start
+    if stats.compiles > compile_budget:
+        raise CompileBudgetExceeded(
+            f"hot-path window compiled {stats.compiles} program(s), "
+            f"budget is {compile_budget} — something in the loop is "
+            "retracing (new shapes/dtypes/static args?) or was not warmed"
+        )
+
+
+def sanctioned_transfer(arr):
+    """Explicit device->host fetch; allowed under transfer guards."""
+    from magicsoup_tpu_torch import util as _util
+
+    return _util.fetch_host(arr)
 
 
 def note_restack(full: int = 0, inserts: int = 0, skipped: int = 0) -> None:

@@ -558,6 +558,7 @@ class FleetScheduler:
             compact=tuple(slot for slot, plan in lane_plans.items() if plan.compact),
         )
 
+    # graftlint: hot
     def _dispatch_group(self, group: _FleetGroup, plans: dict) -> None:
         gi = self._prepare_group(group, plans)
         first = gi.first
@@ -605,6 +606,7 @@ class FleetScheduler:
                 extra_row={"fleet_slot": slot, "fleet_size": gi.B},
             )
 
+    # graftlint: hot
     def _dispatch_fused(self, fused_set: list, plans: dict) -> None:
         """ONE dispatch and ONE record fetch for a fused set of groups:
         every group is stacked and densified first, then

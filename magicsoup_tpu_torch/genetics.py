@@ -305,6 +305,7 @@ class PhenotypeCache:
             )
         return out
 
+    # graftlint: hot
     def lookup(self, genomes: list[str]) -> list[PhenotypeEntry]:
         """Entries for ``genomes`` (one per input, duplicates aliased);
         unique misses are translated in ONE engine batch."""
@@ -333,6 +334,7 @@ class PhenotypeCache:
         _runtime.note_phenotype_cache(hits=n_hits, misses=len(misses))
         return [entries[g] for g in genomes]
 
+    # graftlint: hot
     def lookup_tokens(self, tokens, lengths, idxs=None, hashes=None) -> list[PhenotypeEntry]:
         """Entries keyed by token-row content hashes
         (:func:`magicsoup_tpu_torch.genomes.token_hashes`) instead of
@@ -375,6 +377,7 @@ class PhenotypeCache:
         _runtime.note_phenotype_cache(hits=n_hits, misses=len(miss_keys))
         return [entries[h] for h in hashes]
 
+    # graftlint: hot
     def dense_rows(
         self, entries: list[PhenotypeEntry], p_cap: int, d_cap: int
     ) -> np.ndarray:

@@ -58,7 +58,7 @@ from magicsoup_tpu_torch.ops import detmath
 from magicsoup_tpu_torch.ops import prng as _prng
 from magicsoup_tpu_torch.ops.params import pad_idxs, pad_pow2
 from magicsoup_tpu_torch.parallel.tiled import sharded_attr
-from magicsoup_tpu_torch.util import fetch_host, resolve_device, restored_device
+from magicsoup_tpu_torch.util import fetch_host, resolve_device, restored_device, sanctioned_sync
 
 PAD = 4  # int8 fill value outside a row's live region (never a base)
 TOKEN_NTS = "TCGA"  # token code i <-> TOKEN_NTS[i]; the engine's code
@@ -74,13 +74,15 @@ _DEC = np.frombuffer(TOKEN_NTS.encode(), dtype=np.uint8)
 def _download(t: torch.Tensor) -> np.ndarray:
     """A device tensor on the host, through pinned memory on a CUDA device
     (a copy into pageable memory runs several times slower there); a
-    synchronizing copy either way."""
+    synchronizing copy either way, sanctioned as :func:`fetch_host`'s is
+    (it passes ``hot_path_guard``) and metered as a fetch."""
     if t.device.type != "cuda":
         return fetch_host(t)
     from magicsoup_tpu_torch.telemetry.recorder import note_fetch
 
     host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-    host.copy_(t)
+    with sanctioned_sync():
+        host.copy_(t)
     note_fetch(host.numpy().nbytes)
     return host.numpy()
 
@@ -312,6 +314,7 @@ def _as_key(seed: int | None, device: torch.device) -> torch.Tensor:
     """``jax.random.PRNGKey(seed & (2**63 - 1))`` as jax builds it with
     64-bit mode off (its default): the seed's low 32 bits."""
     if seed is None:
+        # graftlint: disable=GL004 entropy only when the caller passed no seed
         seed = random.SystemRandom().randrange(2**63)
     return _prng.prng_key(int(seed) & 0xFFFFFFFF, device)
 

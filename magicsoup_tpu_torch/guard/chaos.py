@@ -36,8 +36,8 @@ Examples::
     MAGICSOUP_CHAOS="fetch:delay:10;telemetry.emit:eio"
 
 The serve sites (``registry.write``, ``serve.response``, ``serve.queue``)
-parse as in the JAX package, so one spec arms both, but nothing in the
-port probes them until its serving plane lands (ROADMAP A8).
+parse as in the JAX package, so one spec arms both; the port's serving
+plane probes them where the JAX package's does.
 
 The module also hosts the process-wide degraded-state registry:
 subsystems that degrade instead of crashing (a telemetry stream disarming
@@ -96,7 +96,8 @@ SITES: dict[str, tuple[str, ...]] = {
 }
 
 #: where each fault point is probed in the port: site -> (module,
-#: qualified callable); the serve sites have no probe yet (ROADMAP A8)
+#: qualified callable); graftlint's GL021 holds it to the probes in the
+#: code, both ways
 FAULT_POINTS: dict[str, tuple[str, str]] = {
     "io.write": ("magicsoup_tpu_torch.guard.io", "atomic_write_bytes"),
     "checkpoint.write": ("magicsoup_tpu_torch.guard.checkpoint", "write_checkpoint"),
@@ -111,6 +112,12 @@ FAULT_POINTS: dict[str, tuple[str, str]] = {
         "magicsoup_tpu_torch.telemetry.recorder",
         "TelemetryRecorder._flush_locked",
     ),
+    "registry.write": (
+        "magicsoup_tpu_torch.serve.service",
+        "FleetService._write_registry",
+    ),
+    "serve.response": ("magicsoup_tpu_torch.serve.api", "make_handler"),
+    "serve.queue": ("magicsoup_tpu_torch.serve.service", "FleetService.submit"),
 }
 
 

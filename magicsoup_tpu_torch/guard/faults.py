@@ -64,6 +64,7 @@ def flip_byte(path, offset: int | None = None, *, rng=None) -> int:
     data[offset] ^= 0xFF
     # deliberately not atomic: this stands in for on-disk corruption of
     # an already complete file, not a torn write
+    # graftlint: disable=GL018 fault injector corrupts files on purpose
     with open(path, "wb") as fh:
         fh.write(data)
         fh.flush()

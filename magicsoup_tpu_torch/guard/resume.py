@@ -207,6 +207,7 @@ def restore_run(
 
     if mesh is not None:
         if device is not None:
+            # graftlint: disable=GL022 argument check before anything is read; callers catch ValueError
             raise ValueError("device and mesh are mutually exclusive")
         dev = mesh.device
     else:

@@ -81,6 +81,7 @@ def _device_memory() -> dict:
         if not torch.cuda.is_initialized():
             return {}
         return {"cuda_memory_allocated": int(torch.cuda.memory_allocated())}
+    # graftlint: disable=GL013 diagnostic read on the failure path must not mask the error
     except Exception:  # noqa: BLE001 - a diagnostic must not raise
         return {}
 
@@ -95,7 +96,7 @@ def dump_diagnostics(tag: str, extra: dict | None = None) -> dict:
     record = {
         "diagnostic": tag,
         "pid": os.getpid(),
-        "time": time.time(),
+        "time": time.time(),  # graftlint: disable=GL004 diagnostic timestamp, not simulation state
     }
     if extra:
         record.update(extra)
@@ -105,6 +106,7 @@ def dump_diagnostics(tag: str, extra: dict | None = None) -> dict:
         faulthandler.dump_traceback(file=sys.stderr, all_threads=True)
         sys.stderr.write(json.dumps(record, default=str) + "\n")
         sys.stderr.flush()
+    # graftlint: disable=GL013 best-effort dump, original error already propagating
     except Exception:  # noqa: BLE001 - diagnostics must not mask the hang
         pass
     return record

@@ -102,6 +102,7 @@ class _LogNormWeightMapFact:
         nprng = _token_rng(rng)
         # vectorized rejection: redraw the whole remainder until full
         # (the acceptance rate is ~2/3, so this converges in a few rounds)
+        # graftlint: disable=GL003 host token-table precompute, downcast before device
         vals = np.empty(max_token, dtype=np.float64)  # host precompute, stored f32
         n_ok = 0
         while n_ok < max_token:
@@ -489,6 +490,19 @@ class Kinetics:
             self.max_doms, pad_pow2(max(max_doms, 1), minimum=1)
         )
 
+    def build_dense_tokens(
+        self,
+        prot_counts: np.ndarray,
+        prots: np.ndarray,
+        doms: np.ndarray,
+    ) -> np.ndarray:
+        """Flat genome-engine buffers -> the dense ``(b, p, d, 5)`` token
+        array at the CURRENT protein/domain capacities, growing them first
+        if the batch needs more: the one place the capacity rule lives."""
+        self.ensure_token_capacity(prot_counts, prots)
+        return pack_dense(prot_counts, prots, doms, self.max_proteins, self.max_doms)
+
+    # graftlint: hot
     def set_cell_params_flat(
         self,
         cell_idxs: np.ndarray | list[int],
@@ -567,6 +581,7 @@ class Kinetics:
             for k in np.unique(key)
         ]
 
+    # graftlint: hot
     def set_cell_params_cached(self, cell_idxs, entries, cache):
         """Write parameters for cells whose phenotypes come from a
         :class:`~magicsoup_tpu_torch.genetics.PhenotypeCache` — the same
@@ -584,6 +599,7 @@ class Kinetics:
             rows = cache.dense_rows([entries[i] for i in sel], p_r, d_r)
             self.scatter_dense(cell_idxs[sel], rows)
 
+    # graftlint: hot
     def scatter_dense(self, cell_idxs: np.ndarray, dense: np.ndarray):
         """Assemble one packed token batch into parameter rows, in chunks
         that bound the (b, p, d, s) assembly temporaries."""

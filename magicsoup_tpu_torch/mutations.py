@@ -38,6 +38,7 @@ def point_mutations(
         without any mutation are not returned.
     """
     if seed is None:
+        # graftlint: disable=GL004 entropy only when the caller passed no seed
         seed = random.SystemRandom().randrange(2**63)
     return _engine.point_mutations(seqs, p=p, p_indel=p_indel, p_del=p_del, seed=seed)
 
@@ -61,6 +62,7 @@ def recombinations(
         pairs without any strand break are not returned.
     """
     if seed is None:
+        # graftlint: disable=GL004 entropy only when the caller passed no seed
         seed = random.SystemRandom().randrange(2**63)
     return _engine.recombinations(seq_pairs, p=p, seed=seed)
 

@@ -446,7 +446,7 @@ def integrate_signals_cuda_grouped(Xs, params_list) -> list:
     global grouped_launches
     if len(Xs) != len(params_list):
         raise ValueError("one parameter set per group of signals")
-    if not Xs:
+    if len(Xs) == 0:
         return []
     dev = Xs[0].device
     pstrides = []

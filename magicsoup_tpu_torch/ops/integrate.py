@@ -126,14 +126,19 @@ def _multiply_signals(X: torch.Tensor, N: torch.Tensor, det: bool):
     return xx, prots
 
 
+# log(MAX) in float32 as the CPU computes it, read once: the allosteric
+# clamp then fills it on the tensor's device (no host->device copy per call)
+_LOG_MAX = float(torch.log(torch.tensor(MAX, dtype=torch.float32)))
+
+
 def _a_reg_logspace(X: torch.Tensor, A: torch.Tensor, Kmr: torch.Tensor):
     """Allosteric activity ``prod_s(X^A / (X^A + Kmr))`` with the power
     and the product in exp-sum-log form; ``X^A`` saturates at MAX, so a
     zero inhibitor gives ~1 and a zero activator 0."""
     is_reg = A != 0
     t = A.to(torch.float32) * _safe_log(X).unsqueeze(-2)
-    log_max = torch.log(torch.tensor(MAX, dtype=torch.float32))
-    xa = torch.exp(torch.minimum(t, log_max.to(t.device)))
+    log_max = torch.full((), _LOG_MAX, dtype=torch.float32, device=t.device)
+    xa = torch.exp(torch.minimum(t, log_max))
     r = xa / (xa + Kmr)
     r = _where(torch.isnan(r), 1.0, r)
     r = _where(~is_reg, 1.0, r)
@@ -289,3 +294,23 @@ def integrate_signals(
         group_rows(X, c), CellParams(*(group_rows(t, c) for t in params)), det
     )
     return out.reshape(X.shape)
+
+
+def integrate_signals_steps(
+    X: torch.Tensor, params: CellParams, n_steps: int = 1, det: bool | None = None
+) -> torch.Tensor:
+    """``n_steps`` steps of :func:`integrate_signals` in one call, each
+    step's output the next one's input (deterministic mode flushes CPU
+    subnormals as XLA does, as the World's steps do).  The JAX package
+    donates ``X`` to its fused program; here the caller's ``X`` is left
+    intact and a new tensor is returned.  ``X`` that is not a tensor (host
+    numpy) is placed on the parameters' device."""
+    if det is None:
+        det = default_deterministic()
+    X = torch.as_tensor(X, dtype=torch.float32, device=params[0].device)
+    if n_steps < 1:
+        return X.clone()
+    with flush_denormal(X.device) if det else contextlib.nullcontext():
+        for _ in range(int(n_steps)):
+            X = integrate_signals(X, params, det=det)
+    return X

@@ -85,6 +85,12 @@ def quantize_rows(n: int, cap: int, quantum: int = ROW_QUANTUM) -> int:
     return min(cap, max(quantum, -(-n // quantum) * quantum))
 
 
+def next_rung(rung: int, cap: int) -> int:
+    """The row-ladder rung above ``rung`` (== ``rung`` at the cap): the
+    one rule for 'warm one rung ahead'."""
+    return quantize_rows(rung + 1, cap) if rung < cap else rung
+
+
 def rung_pow2(values: np.ndarray, minimum: int, cap: int) -> np.ndarray:
     """Vectorized pow2 rung per value, floored at ``minimum`` and clamped
     to ``cap`` — the group key of the rung-grouped assembly."""

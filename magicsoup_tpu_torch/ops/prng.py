@@ -31,6 +31,7 @@ values, so every draw is bit-equal on either device.
 """
 import math
 
+import numpy as np
 import torch
 
 _M32 = 0xFFFFFFFF
@@ -60,12 +61,15 @@ def threefry2x32(
     return x0, x1
 
 
+def key_words(seed: int) -> np.ndarray:
+    """The two words of ``jax.random.PRNGKey(seed)`` as host int64."""
+    seed = int(seed)
+    return np.array([(seed >> 32) & _M32, seed & _M32], dtype=np.int64)
+
+
 def prng_key(seed: int, device=None) -> torch.Tensor:
     """``jax.random.PRNGKey(seed)`` as a ``(2,)`` int64 tensor."""
-    seed = int(seed)
-    return torch.tensor(
-        [(seed >> 32) & _M32, seed & _M32], dtype=torch.int64, device=device
-    )
+    return torch.tensor(key_words(seed), dtype=torch.int64, device=device)
 
 
 def hash_counters_plain(key: torch.Tensor, shape: tuple[int, ...], pair: bool = False):

@@ -101,6 +101,7 @@ class Mesh:
     def block(self, n: int) -> tuple[int, int]:
         """This rank's ``[lo, hi)`` of an axis of ``n`` entries."""
         if n % self.size:
+            # graftlint: disable=GL022 shape precondition of every mesh op, not a checkpoint policy decision
             raise ValueError(f"an axis of {n} does not split over {self.size} ranks")
         b = n // self.size
         return self.rank * b, (self.rank + 1) * b
@@ -344,6 +345,7 @@ def halo_diffuse(
         with flush_denormal(molecule_map.device):
             total_before = _det.sum_hw(mesh.all_gather(molecule_map, 1))
             out = _stencil_rows(
+                # graftlint: disable=GL003 sanctioned det-mode f64, as the JAX package's det path
                 rows.to(torch.float64), kernels.to(torch.float64), h
             ).to(torch.float32)
             total_after = _det.sum_hw(mesh.all_gather(out, 1))

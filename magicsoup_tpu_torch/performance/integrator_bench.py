@@ -39,6 +39,7 @@ from magicsoup_tpu_torch.interop import params_from_numpy
 from magicsoup_tpu_torch.ops import backends
 from magicsoup_tpu_torch.ops import cuda_integrate as ci
 from magicsoup_tpu_torch.ops.integrate import CellParams
+from magicsoup_tpu_torch.util import fetch_host
 from magicsoup_tpu_torch.performance import (
     HBM_BYTES_PER_S,
     card_line,
@@ -153,7 +154,7 @@ def bench(c, p, s, occupancy, chain, reps, points, device, log=print) -> tuple[l
             "device": name,
         })
     if "cuda" in after and "torch-fast" in after:
-        diff = float((after["cuda"] - after["torch-fast"]).abs().max())
+        diff = float(fetch_host((after["cuda"] - after["torch-fast"]).abs().max()))
         log(f"max |cuda - torch-fast| after {chain} steps: {diff:.3e}")
     return rows, ok
 

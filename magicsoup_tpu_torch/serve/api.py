@@ -374,6 +374,7 @@ def make_handler(service):
                     {"error": str(exc)},
                     retry_after=exc.retry_after,
                 )
+            # graftlint: disable=GL013 delivered to the client as HTTP 500
             except Exception as exc:  # delivered to the client as HTTP 500
                 self._reply(500, {"error": f"{type(exc).__name__}: {exc}"})
 

@@ -720,6 +720,7 @@ class FleetService:
                 break
             try:
                 cmd.result = self._execute(cmd.name, cmd.payload)
+            # graftlint: disable=GL013 delivered to the requesting client; the loop must survive
             except Exception as exc:  # delivered to the requesting client; the loop must survive
                 cmd.error = exc
             with self._edge_lock:

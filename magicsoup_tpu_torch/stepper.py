@@ -87,6 +87,7 @@ from magicsoup_tpu_torch.telemetry.recorder import note_fetch
 from magicsoup_tpu_torch.ops.params import (
     compact_rows,
     compute_cell_params,
+    next_rung,
     permute_params,
     quantize_rows,
     write_new_rows,
@@ -130,6 +131,17 @@ _BITS = 16  # bits packed per i32 word (16 keeps every value positive)
 _HEADER_WORDS = 11
 HEALTH_WORD = 8
 INVARIANT_WORD = 9
+
+
+def record_flag_views(records) -> tuple[np.ndarray, np.ndarray]:
+    """Zero-copy ``(health, invariants)`` flag-word views of a fetched
+    step-record buffer of ANY leading shape: ``(record,)`` for one step,
+    ``(k, record)`` for a megastep fetch, ``(B, k, record)`` for a fleet
+    group's shared fetch — index ``[slot]`` on the views for a single
+    world's flags without another device->host copy (the warden's
+    per-slot path).  ``records`` is host memory (a fetched numpy buffer)."""
+    arr = np.asarray(records)
+    return arr[..., HEALTH_WORD], arr[..., INVARIANT_WORD]
 
 
 def _pack_bits(b: torch.Tensor) -> torch.Tensor:
@@ -996,6 +1008,7 @@ class _Worker:
             fn, fut = item
             try:
                 fut.set_result(fn())
+            # graftlint: disable=GL013 error re-surfaces from the future
             except BaseException as exc:  # noqa: BLE001 - delivered to result()
                 fut.set_exception(exc)
 
@@ -1011,6 +1024,7 @@ class _Worker:
             # after close() the queue is never drained: resolve inline
             try:
                 fut.set_result(fn())
+            # graftlint: disable=GL013 error re-surfaces from the future
             except BaseException as exc:  # noqa: BLE001
                 fut.set_exception(exc)
         return fut
@@ -1299,7 +1313,7 @@ class PipelinedStepper:
         self._change_seq = 0  # bumps on every genome-change batch created
         self._dispatched_seq = 0  # highest batch seq actually dispatched
         self._attach(
-            to_device(_prng.prng_key(world._rng.randrange(2**31)).numpy()[None], dev)
+            to_device(_prng.key_words(world._rng.randrange(2**31))[None], dev)
         )
         self._needs_attach = False
 
@@ -1330,7 +1344,7 @@ class PipelinedStepper:
             (
                 w._genome_store.__dict__["tokens"]
                 if w._genome_store is not None
-                else w._genomes_list
+                else w._genomes_list  # graftlint: disable=GL023 identity probe only, no decode
             ),
             w.cell_labels,
             w._np_positions,
@@ -1375,6 +1389,7 @@ class PipelinedStepper:
             self._genomes = None
         else:
             self._token_store = None
+            # graftlint: disable=GL023 string-backend attach boundary
             self._genomes = list(w.cell_genomes) + [""] * (self._cap - w.n_cells)
         self._labels: list = list(w.cell_labels) + [""] * (self._cap - w.n_cells)
         self._lifetimes = np.zeros(self._cap, dtype=np.int32)
@@ -1436,6 +1451,7 @@ class PipelinedStepper:
         t_dispatched = time.perf_counter()
         # one dispatch ran its k integrator steps through this backend
         _runtime.note_integrator_dispatch(self.world.integrator)
+        _runtime.note_program_shape(self._variant_key(q, plan.compact))
         self._commit_dispatch(
             plan,
             self._fetch(out[0], self._device_ready(t_dispatched, [self])),
@@ -1522,6 +1538,7 @@ class PipelinedStepper:
         """Host half of one dispatch: drain, growth and compaction
         decisions, spawn and push batch selection, token-capacity growth
         — everything that must settle before inputs are densified."""
+        # graftlint: disable=GL025 plan-carried reading: noted as step_ms at commit
         t_start = time.perf_counter()
         fetch0 = self._fetch_acc
         if self._quarantine_pending:
@@ -1581,9 +1598,11 @@ class PipelinedStepper:
 
         # the param_assembly and spawn spans are noted when the batches are
         # densified (dispatch_inputs)
+        # graftlint: disable=GL025 plan-carried reading: the param_assembly span is noted at commit
         t_asm0 = time.perf_counter()
         spawn = self._spawn_queue[: self.spawn_block]
         self._spawn_queue = self._spawn_queue[len(spawn) :]
+        # graftlint: disable=GL025 plan-carried reading: the spawn span is noted at commit
         t_spawn0 = time.perf_counter()
         spawn_entries = (
             self.world.phenotypes.lookup([g for g, _ in spawn]) if spawn else None
@@ -1724,11 +1743,52 @@ class PipelinedStepper:
             rec.emit(row)
 
     def prewarm(self, *, q: int | None = None, compact: bool = False) -> None:
-        """A no-op: eager PyTorch compiles no step program (kept for the
-        JAX package's API)."""
+        """Warm the step dispatch's ``(q, compact)`` variant WITHOUT
+        advancing the simulation, so a later dispatch at it starts warm (0
+        compiles under
+        :func:`~magicsoup_tpu_torch.analysis.runtime.hot_path_guard`).
+        ``q`` defaults to the rung the current rows use and the one above
+        it (the capacity on a mesh), as in the JAX package.  The warming is
+        :meth:`World.prewarm_activity`'s: the native builds and the
+        activity at ``q`` run once on the world's tensors with the result
+        discarded (not on a mesh, where the activity is collective), then
+        the variant noted warm in the compile census."""
+        if q is None:
+            if self._mesh is not None:
+                self.prewarm(q=self._cap, compact=compact)
+                return
+            cur = quantize_rows(self._n_rows, self._cap)
+            self.prewarm(q=cur, compact=compact)
+            if (nxt := next_rung(cur, self._cap)) != cur:
+                self.prewarm(q=nxt, compact=compact)
+            return
+        if self._mesh is None:
+            self.world._warm_activity(min(int(q), self._cap))
+        _runtime.note_program_shape(self._variant_key(q, compact))
+
+    def _variant_key(self, q: int, compact: bool) -> tuple:
+        """The dispatch's program shape in the compile census: the JAX
+        package's ``(q, compact, megastep, tiles, max_proteins, max_doms)``
+        with the device, the integrator, the numeric mode and the
+        capacity that shape every tensor."""
+        return (
+            "stepper",
+            str(self.world.device),
+            self.world.integrator,
+            self.world.deterministic,
+            self._cap,
+            q,
+            bool(compact),
+            self.megastep,
+            self._n_tiles,
+            self.kin.max_proteins,
+            self.kin.max_doms,
+        )
 
     def wait_warm(self, timeout: float | None = None) -> None:
-        """A no-op, like :meth:`prewarm`."""
+        """Return at once: :meth:`prewarm` warms inline in the caller's
+        thread, so nothing is ever left warming in the background (see
+        :meth:`World.wait_warm`)."""
 
     # -------------------------------------------------------------- #
     # replay side                                                    #
@@ -1975,7 +2035,7 @@ class PipelinedStepper:
                     tok_rows.append(row)
                     tok_genomes.append(g)
                 else:
-                    self._genomes[row] = g
+                    self._genomes[row] = g  # graftlint: disable=GL023 string-backend fallback
                 self._labels[row] = lab
                 self._lifetimes[row] = 0
                 self._divisions[row] = 0
@@ -2008,6 +2068,7 @@ class PipelinedStepper:
                 div_parents.append(p)
                 div_children.append(row)
             else:
+                # graftlint: disable=GL023 string-backend fallback
                 self._genomes[row] = self._genomes[p]
             self._labels[row] = self._labels[p]
             self._divisions[p] += 1
@@ -2017,6 +2078,7 @@ class PipelinedStepper:
             self._positions[row] = out.child_pos[i]
             self._alive[row] = True
             if self._last_change[p] > change_seq:
+                # graftlint: disable=GL023 string-backend fallback
                 repush[row] = None if self._genomes is None else self._genomes[row]
             else:
                 self._last_change[row] = self._last_change[p]
@@ -2087,6 +2149,7 @@ class PipelinedStepper:
         else:
             # one C-level pass over the row list (a Python loop over the
             # live rows costs ~2x as much at 10k cells)
+            # graftlint: disable=GL023 string-backend fallback
             lens = np.fromiter(map(len, self._genomes), dtype=np.int64, count=len(self._genomes))
             lens = lens[np.nonzero(self._alive)[0]]
         n = len(lens)
@@ -2120,6 +2183,7 @@ class PipelinedStepper:
         if self._token_store is not None:
             self._token_store.permute(perm, n_keep)
         else:
+            # graftlint: disable=GL023 string-backend fallback
             self._genomes = [self._genomes[i] for i in perm]
         self._labels = [self._labels[i] for i in perm]
         self._lifetimes = self._lifetimes[perm]
@@ -2129,8 +2193,8 @@ class PipelinedStepper:
         self._alive = np.zeros(self._cap, dtype=bool)
         self._alive[:n_keep] = True
         for i in range(n_keep, self._cap):
-            if self._genomes is not None:
-                self._genomes[i] = ""
+            if self._genomes is not None:  # graftlint: disable=GL023 string-backend fallback
+                self._genomes[i] = ""  # graftlint: disable=GL023 string-backend fallback
             self._labels[i] = ""
         self._lifetimes[n_keep:] = 0
         self._divisions[n_keep:] = 0
@@ -2152,15 +2216,17 @@ class PipelinedStepper:
                 pair_rows = rows[pairs_k]
                 seed = int(self._rng.integers(2**63))
                 for g0, g1, k in _engine.recombinations_indexed(
+                    # graftlint: disable=GL023 string-backend fallback
                     self._genomes, pair_rows, p=self.p_recombination, seed=seed
                 ):
                     r0, r1 = pair_rows[k]
                     changed[int(r0)] = g0
                     changed[int(r1)] = g1
         if len(rows) and self.p_mutation > 0:
+            # graftlint: disable=GL023 string-backend fallback
             seqs = [changed.get(int(r), self._genomes[int(r)]) for r in rows]
             seed = int(self._rng.integers(2**63))
-            for g, i in _engine.point_mutations(
+            for g, i in _engine.point_mutations(  # graftlint: disable=GL023 string-backend fallback
                 seqs, p=self.p_mutation, p_indel=self.p_indel, p_del=self.p_del, seed=seed
             ):
                 changed[int(rows[i])] = g
@@ -2235,7 +2301,7 @@ class PipelinedStepper:
     def _apply_evolution(self, changed: dict[int, str]) -> None:
         """Write the changed genomes and queue their phenotype refresh."""
         for r, g in changed.items():
-            self._genomes[r] = g
+            self._genomes[r] = g  # graftlint: disable=GL023 string-backend fallback
         rows_c = sorted(changed)
         self._queue_refresh([changed[r] for r in rows_c], rows_c)
 
@@ -2374,6 +2440,7 @@ class PipelinedStepper:
             # hand the tensors back wholesale: no decode, no encode
             w._genome_store.adopt(self._token_store.tokens, self._token_store.lengths)
         else:
+            # graftlint: disable=GL023 string-backend flush boundary
             w.cell_genomes = [self._genomes[i] for i in range(n_keep)]
         w.cell_labels = [self._labels[i] for i in range(n_keep)]
         w._np_positions = self._positions.copy()

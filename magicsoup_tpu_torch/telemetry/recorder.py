@@ -102,6 +102,7 @@ def _close_handle(fh, buffered: list[str], lock) -> None:
             if buffered:
                 fh.write("\n".join(buffered) + "\n")
             fh.close()
+    # graftlint: disable=GL013 gc-time finalizer; nothing above it can react
     except Exception:  # noqa: BLE001 - gc-time finalizer; nothing above it can react
         pass
 
@@ -185,6 +186,7 @@ class TelemetryRecorder:
                 "version": 1,
                 # wall-clock on purpose: correlates the run with external
                 # logs; never used for measurement (spans use perf_counter)
+                # graftlint: disable=GL004 telemetry timestamp, not simulation state
                 "wall": time.time(),
             }
         )

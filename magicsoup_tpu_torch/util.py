@@ -12,6 +12,7 @@ import contextlib
 import contextvars
 import random
 import string
+import threading
 from collections.abc import Iterable
 from itertools import product
 
@@ -164,13 +165,88 @@ def restored_device(saved: str, owner: str) -> torch.device:
     return device
 
 
+# ------------------------------------------------------------------ #
+# the transfer half of analysis.runtime.hot_path_guard               #
+# ------------------------------------------------------------------ #
+# torch.cuda.set_sync_debug_mode is process-wide (jax.transfer_guard is
+# per thread).  Open guards stack the modes they set here, and fetch_host
+# lifts the mode to "default" for its own copy while a guard is open, as
+# jax.device_get passes a transfer guard.  The lifts are counted under one
+# lock, so fetches on two threads (the caller's and a fetcher's) cannot
+# restore a stale mode; while any fetch is in flight the mode is "default"
+# for the whole process, so another thread's sync then passes unseen.
+_SYNC_LOCK = threading.Lock()
+_sync_frames: list[int] = []  # the modes the open guards set, innermost last
+_sync_base = 0  # the mode found when the outermost guard opened
+_sync_lifted = 0  # fetch_host copies in flight under an open guard
+_SYNC_MODES = {"default": 0, "warn": 1, "error": 2}
+
+
+def _sync_wanted() -> int:
+    return _sync_frames[-1] if _sync_frames else _sync_base
+
+
+def push_sync_mode(mode: str | None) -> bool:
+    """Open a guard window at sync debug mode ``mode`` (None keeps the
+    current one).  Returns whether the window is live: False without a
+    CUDA device, where torch's sync debug mode sees nothing."""
+    global _sync_base
+    if not torch.cuda.is_available():
+        return False
+    with _SYNC_LOCK:
+        if not _sync_frames and _sync_lifted == 0:
+            _sync_base = torch.cuda.get_sync_debug_mode()
+        target = _sync_wanted() if mode is None else _SYNC_MODES[mode]
+        _sync_frames.append(target)
+        if _sync_lifted == 0:
+            torch.cuda.set_sync_debug_mode(target)
+    return True
+
+
+def pop_sync_mode() -> bool:
+    """Close the innermost guard window and restore the mode outside it.
+    Returns whether the mode was still the one the window set (a lifted
+    fetch in flight counts as such)."""
+    with _SYNC_LOCK:
+        held = _sync_lifted > 0 or torch.cuda.get_sync_debug_mode() == _sync_frames[-1]
+        _sync_frames.pop()
+        if _sync_lifted == 0:
+            torch.cuda.set_sync_debug_mode(_sync_wanted())
+    return held
+
+
+@contextlib.contextmanager
+def sanctioned_sync():
+    """Scope of one sanctioned device->host copy (:func:`fetch_host`, the
+    token store's pinned snapshots): sync debug mode "default" for it, if
+    a guard is open; the open guard's mode again once the last lifted copy
+    is done."""
+    global _sync_lifted
+    with _SYNC_LOCK:
+        lift = bool(_sync_frames)
+        if lift:
+            _sync_lifted += 1
+            if _sync_lifted == 1:
+                torch.cuda.set_sync_debug_mode(0)
+    try:
+        yield
+    finally:
+        if lift:
+            with _SYNC_LOCK:
+                _sync_lifted -= 1
+                if _sync_lifted == 0:
+                    torch.cuda.set_sync_debug_mode(_sync_wanted())
+
+
 def fetch_host(t) -> np.ndarray:
     """Tensor -> host numpy: the port's one device->host boundary.  On a
-    CUDA tensor this is a synchronizing copy.  Each call is counted in
-    ``telemetry.fetch_stats``."""
+    CUDA tensor this is a synchronizing copy, allowed inside
+    :func:`~magicsoup_tpu_torch.analysis.runtime.hot_path_guard`.  Each
+    call is counted in ``telemetry.fetch_stats``."""
     from magicsoup_tpu_torch.telemetry.recorder import note_fetch
 
-    out = t.detach().cpu().numpy()
+    with sanctioned_sync():
+        out = t.detach().cpu().numpy()
     note_fetch(out.nbytes)
     return out
 

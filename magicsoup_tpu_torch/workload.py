@@ -10,6 +10,7 @@ package); the steps, their order and their random draws are the same.
 from contextlib import nullcontext
 
 import numpy as np
+import torch
 
 from magicsoup_tpu_torch.util import random_genome
 
@@ -74,7 +75,5 @@ def sim_step(
     with timeit("wrapUp"):
         world.degrade_and_diffuse_molecules()
         world.increment_cell_lifetimes()
-        if sync:
-            # a value fetch is a device barrier
-            float(world._molecule_map[0, 0, 0])
-            float(world._cell_molecules[0, 0])
+        if sync and world.device.type == "cuda":
+            torch.cuda.synchronize(world.device)

@@ -52,6 +52,7 @@ import numpy as np
 import torch
 
 from magicsoup_tpu_torch import genomes as _genomes
+from magicsoup_tpu_torch.analysis import runtime as _runtime
 from magicsoup_tpu_torch.containers import Cell, Chemistry
 from magicsoup_tpu_torch.genetics import Genetics, PhenotypeCache
 from magicsoup_tpu_torch.kinetics import Kinetics
@@ -65,6 +66,7 @@ from magicsoup_tpu_torch.guard.io import atomic_write_bytes, atomic_write_text
 from magicsoup_tpu_torch.parallel import tiled as _tiled
 from magicsoup_tpu_torch.ops.params import (
     compact_rows,
+    next_rung,
     pad_pow2,
     quantize_rows,
     write_new_rows,
@@ -251,6 +253,7 @@ class World:
         self._mesh = mesh
         self.device = resolve_device(device, "World")
         if seed is None:
+            # graftlint: disable=GL004 entropy only when the caller passed no seed
             seed = random.SystemRandom().randrange(2**63)
         self.seed = seed
         self._rng = random.Random(seed)
@@ -461,7 +464,8 @@ class World:
             _, _, host, done = pf
             if done is not None:
                 done.synchronize()
-            return host.numpy()[: self.n_cells]
+            # host memory already: fetch_host meters it without a copy
+            return fetch_host(host)[: self.n_cells]
         return fetch_host(self._cell_molecules[:, mol_idx])[: self.n_cells]
 
     def add_cell_molecules(self, cell_idxs: list[int], mol_idx: int, delta: float):
@@ -1032,24 +1036,89 @@ class World:
         (a later :meth:`cell_molecule_column` picks it up)."""
         if self.n_cells == 0:
             return
+        has_col = prefetch_column is not None
         if self._mesh is not None:
             self._mesh_activity()
-            if prefetch_column is not None:
+            _runtime.note_program_shape(self._activity_variant_key(None, has_col))
+            if has_col:
                 self.prefetch_cell_molecule_column(prefetch_column)
             return
         q = quantize_rows(self.n_cells, self._capacity)
         with self._ftz():
-            self._molecule_map, self._cell_molecules = _enzymatic_activity(
-                functools.partial(_backends.integrate, self.integrator),
-                self._molecule_map,
-                self._cell_molecules,
-                self._positions_dev,
-                self.n_cells,
-                self.kinetics.params,
-                q,
-            )
-        if prefetch_column is not None:
+            self._molecule_map, self._cell_molecules = self._activity_at(q)
+        _runtime.note_program_shape(self._activity_variant_key(q, has_col))
+        if has_col:
             self.prefetch_cell_molecule_column(prefetch_column)
+
+    def _activity_at(self, q: int) -> tuple[torch.Tensor, torch.Tensor]:
+        """The activity's new ``(molecule_map, cell_molecules)`` over the
+        live-row prefix ``q``; the world's own tensors are left as they are."""
+        return _enzymatic_activity(
+            functools.partial(_backends.integrate, self.integrator),
+            self._molecule_map,
+            self._cell_molecules,
+            self._positions_dev,
+            self.n_cells,
+            self.kinetics.params,
+            q,
+        )
+
+    def prewarm_activity(self, *, q: int | None = None, has_col: bool = False) -> None:
+        """Warm the activity's live-row-prefix variant ``q`` WITHOUT
+        touching state, so a later :meth:`enzymatic_activity` at that rung
+        starts warm (0 compiles under
+        :func:`~magicsoup_tpu_torch.analysis.runtime.hot_path_guard`).
+        ``q`` defaults to the rung the current population uses AND the one
+        above it, as in the JAX package.
+
+        In eager PyTorch "warm" means: the native libraries built
+        (``cache.ensure_compile_cache``), the integrator kernel's
+        shared-memory size set and the caching allocator grown for the
+        variant — both by running the activity once on the current state
+        and discarding the result, as the JAX package's warm program does
+        (one integrator launch on a card) — and the variant noted warm in
+        the compile census.  A no-op on a mesh or with 0 cells."""
+        if self._mesh is not None or self.n_cells == 0:
+            return
+        if q is None:
+            cur = quantize_rows(self.n_cells, self._capacity)
+            self.prewarm_activity(q=cur, has_col=has_col)
+            if (nxt := next_rung(cur, self._capacity)) != cur:
+                self.prewarm_activity(q=nxt, has_col=has_col)
+            return
+        self._warm_activity(min(int(q), self._capacity))
+        _runtime.note_program_shape(self._activity_variant_key(q, has_col))
+
+    def _warm_activity(self, q: int) -> None:
+        """The native builds, then the activity at ``q`` on the current
+        state with its result discarded."""
+        from magicsoup_tpu_torch.cache import ensure_compile_cache
+
+        ensure_compile_cache(self.device)
+        with self._ftz():
+            self._activity_at(q)
+
+    def _activity_variant_key(self, q: int | None, has_col: bool) -> tuple:
+        """The activity's program shape in the compile census: the JAX
+        package's ``(q, has_col, max_proteins, max_doms)`` with the device,
+        the integrator and the signal count that shape every tensor."""
+        return (
+            "activity",
+            str(self.device),
+            self.integrator,
+            2 * self.n_molecules,
+            q,
+            has_col,
+            self.kinetics.max_proteins,
+            self.kinetics.max_doms,
+        )
+
+    def wait_warm(self, timeout: float | None = None) -> None:
+        """Return at once: :meth:`prewarm_activity` warms inline in the
+        caller's thread (an eager launch costs microseconds to enqueue and
+        no compile service stands behind it, so nothing is ever left warming
+        in the background), which leaves nothing to wait for.  Kept for the
+        JAX package's API."""
 
     def _mesh_activity(self) -> None:
         """Activity of a mesh-placed world: each rank integrates its slot
@@ -1222,6 +1291,7 @@ class World:
     # parameter updates                                                  #
     # ------------------------------------------------------------------ #
 
+    # graftlint: hot
     def _update_cell_params(self, genomes: list[str], idxs: list[int]):
         """Translate genomes (through the phenotype cache) and write
         kinetic parameters for these cells; duplicate slots: last wins."""
@@ -1230,6 +1300,7 @@ class World:
         idxs_arr, genomes = _last_wins(idxs, genomes)
         self._apply_phenotype_entries(idxs_arr, self.phenotypes.lookup(genomes))
 
+    # graftlint: hot
     def _update_cell_params_tokens(self, idxs):
         """Parameter update for store rows already on the device (the
         programs' changed rows): one cached host snapshot of the store,
@@ -1241,6 +1312,7 @@ class World:
         entries = self.phenotypes.lookup_tokens(tokens, lengths, idxs_arr.tolist())
         self._apply_phenotype_entries(idxs_arr, entries)
 
+    # graftlint: hot
     def _update_cell_params_rows(self, idxs, rows, lens):
         """Parameter update from freshly encoded host rows (the string
         import boundary: spawn, update): hashes come straight from the
@@ -1250,6 +1322,7 @@ class World:
             return
         self._apply_phenotype_entries(idxs_arr, self.phenotypes.lookup_tokens(rows, lens))
 
+    # graftlint: hot
     def _apply_phenotype_entries(self, idxs_arr: np.ndarray, entries) -> None:
         """The shared tail of the parameter updates: unset empty
         proteomes, grow the token limits for the whole dispatch, pack in
