@@ -37,14 +37,14 @@ Smoke run of the PyTorch/CUDA port on one CUDA card:
    genome_size=500, lag=2, megastep=K)``, 3 warm-up dispatches and
    ``drain()``; one dispatch with the fetcher idle under
    ``torch.cuda.set_sync_debug_mode("error")`` (enqueueing must not
-   synchronize the host); then a timed window of 120 simulated steps
+   synchronize the host); then a timed window of 60 simulated steps
    ending in ``drain()`` (steps/s in simulated steps), with the kernel's
    launch count set to 0 just before and one launch per simulated step
    after; a profiled window of 10 steps; ``flush()``, and the world's
    state must be finite and >= 0;
 7. the fleet: ``FleetScheduler(block=4)`` with 4 such worlds (seeds
    42-45), the same stepper arguments at K = 1, one warm-up fleet step,
-   then 40 timed fleet steps ending in ``drain()``; exactly one launch of
+   then 20 timed fleet steps ending in ``drain()``; exactly one launch of
    the kernel's batched grid (K2) per fleet step for the group; a
    profiled window; after ``flush()`` every world's state must be finite
    and >= 0;
@@ -88,7 +88,7 @@ Smoke run of the PyTorch/CUDA port on one CUDA card:
     before and read just after;
 12. the integrator microbenchmark
     (``magicsoup_tpu_torch.performance.integrator_bench``) at its defaults
-    (16384 x 32 x 28, 75% live rows, chains of 10 steps, median of 7):
+    (16384 x 32 x 28, 75% live rows, chains of 10 steps, median of 4):
     ``cuda`` at B 1 and 4, ``torch-fast`` at B 1, one kernel launch per
     chained ``cuda`` step;
 13. deterministic mode on the card against the CPU, as
@@ -169,7 +169,7 @@ Smoke run of the PyTorch/CUDA port on one CUDA card:
 22. the guard and telemetry planes (``magicsoup_tpu_torch.guard``,
     ``.telemetry``): a fresh 10k world with a recorder attached runs 5
     classic steps (one K1 launch each), then the string stepper at K = 1
-    in four windows of 60 steps with the recorder detached, attached,
+    in four windows of 30 steps with the recorder detached, attached,
     attached, detached (steps/s, rows and bytes written, one K2 launch
     per step, the device-time census one entry per dispatch with its
     total within the window's wall time), one enqueue with the recorder
@@ -210,7 +210,7 @@ Smoke run of the PyTorch/CUDA port on one CUDA card:
     capacity 16384) and 2 of 20k on 256² (seeds 44, 45, capacity 32768),
     phase 7's selection at K = 1 without capacity growth, ``block=2``,
     twice from the same seeds, ``fusion="rung"`` and ``fusion="fleet"``,
-    in interleaved windows of 30 fleet steps (rung, fused, fused, rung):
+    in interleaved windows of 15 fleet steps (rung, fused, fused, rung):
     world-steps/s per window; per fleet step dispatches, record fetches,
     K2 launches, grouped launches (exactly one per fused step); a
     profiled 5-step window of each; peak memory; flags decoded as in 6
@@ -302,7 +302,9 @@ Smoke run of the PyTorch/CUDA port on one CUDA card:
     per simulated step (the fused one grouped once per fleet step), and an
     ``.item()`` inside a window raises while a sanctioned fetch passes;
     (b) the token stepper at K = 1 with phase 16's selection under
-    ``transfers="log"``, its synchronizing calls counted by site; (c) in
+    ``transfers="log"``, its synchronizing calls counted by site (there
+    must be none), then 5 more steps under ``hot_path_guard(0,
+    "disallow")``; (c) in
     two fresh processes (``--warm-child``), a fresh 10k world's first
     activity cold, and after ``prewarm_activity()`` + ``wait_warm()``
     (state digest unchanged) under ``hot_path_guard(0)``, with their
@@ -311,10 +313,34 @@ Smoke run of the PyTorch/CUDA port on one CUDA card:
     magicsoup_tpu_torch.analysis --check`` exits 0 (run beside the
     rest).  A ``{"analysis": ...}`` line; its launches join the K1, K2,
     grouped and threefry entries.
+27. the measurement drivers (``magicsoup_tpu_torch.performance``) at the
+    headline's width (10,000 cells, 128², Wood-Ljungdahl, 500-bp genomes,
+    seed 42), each at a cut depth: ``python -m
+    magicsoup_tpu_torch.performance.bench --config headline`` as a child
+    process (its classic line, then its headline line with ``bench.py``'s
+    keys plus ``"device"``, the value the faster driver's), then
+    ``bench.main`` in this process (one K1 launch per classic step, one
+    K2 launch per simulated step of the pipelined driver);
+    ``run_simulation`` classic (30 steps) and ``--pipelined`` (10) under
+    ``build/``, each final checkpoint restored on the card with the run's
+    cell count; ``check --n 10000 --s 1000 --r 2 --json`` (the ops in the
+    JAX order); ``profile_step --warmup 5 --steps 10``; ``megastep_sweep
+    --ks 1,4 --steps 24``; ``fleet_sweep --bs 1,4,16 --ks 1,4`` (one group,
+    one K2 launch per simulated step) and ``--mixed-rungs --rungs 2 --bs
+    4`` (two K2 launches per simulated step per rung, one grouped launch
+    fused); ``mesh_sweep --devices 1,2 --steps 16`` (two ranks sharing the
+    card over gloo) and ``--check --devices 2`` (det, the mesh bit-equal
+    to one device).  Each driver is called through its ``main(argv)``
+    with the launch counts set to 0 just before; its rows must carry its
+    JAX script's keys and its launches be one per step.  A ``{"drivers":
+    ...}`` line with the phase's wall seconds; its launches join the K1,
+    K2, grouped and threefry entries.
 
 Phases 10, 11 and 14 run right after the build, 15 after 5, 19 and 20
 after 5 and after 15, 16 and 17 after 7, 12, 18, 13 and 21 after 9, 22,
-23, 24 and 25 after them, 26 last.
+23, 24 and 25 after them, then 26 and 27.  Each phase's wall seconds are
+printed when it ends, and all of them on one ``{"phase_seconds": ...}``
+line.
 
 With ``--parent DIR`` the run also builds an earlier version of the
 integrator kernel and of the ladder from DIR (its ``magicsoup_tpu_torch/
@@ -336,8 +362,8 @@ a ``{"token_workload": ...}`` line, ``{"persistence": ...}`` and
 K2 lines, the digests, sweep, ladder, microbenchmark and det lines, a
 ``{"differential": ...}`` line, a ``{"guard": ...}`` line, a
 ``{"fused_fleet": ...}`` line, a ``{"serve": ...}`` line, a
-``{"meshes": ...}`` line, an ``{"analysis": ...}`` line, the whole run's
-seconds, a ``{"kernels": [...]}`` line (K1, K2, the grouped launch, K3,
+``{"meshes": ...}`` line, an ``{"analysis": ...}`` line, a ``{"drivers":
+...}`` line, the phases' seconds, the whole run's seconds, a ``{"kernels": [...]}`` line (K1, K2, the grouped launch, K3,
 threefry), the card's name and power limit, and as its
 last line ``{"ok": true, "device": {...}}``.  Any failure raises, and the
 run exits non-zero without that last line.  It needs one card.
@@ -347,15 +373,29 @@ run exits non-zero without that last line.  It needs one card.
 import contextlib
 import hashlib
 import json
+import math
 import os
 import random
 import sys
+import threading
 import time
+import traceback
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 RUN_T0 = time.perf_counter()
+#: each phase's wall seconds, in the order they ran
+_LAPS: dict[str, float] = {}
+_LAP_T = [RUN_T0]
+
+
+def _lap(name: str) -> None:
+    """Close the wall-clock lap of phase ``name`` and print its seconds."""
+    t = time.perf_counter()
+    _LAPS[name] = round(t - _LAP_T[0], 3)
+    _LAP_T[0] = t
+    print(f"phase {name}: {_LAPS[name]:.3f} s", flush=True)
 
 # H100 SXM, NVIDIA's data sheet: the f32 rate outside the tensor cores
 # (the kernel's arithmetic is f32 on the CUDA cores); the memory rate is
@@ -373,10 +413,10 @@ PHASE_STEPS = 10
 KERNEL_REPS = 25
 PLAIN_REPS = 5
 K2_WORLDS = 4
-STEPPER_STEPS = 120
+STEPPER_STEPS = 60
 STEPPER_WARMUP = 3
 FLEET_WORLDS = 4
-FLEET_STEPS = 40
+FLEET_STEPS = 20
 #: the digests' shapes: K1 at (q, p, s), K2 at (K2_WORLDS, rows, p, s)
 DIGEST_K1 = (10240, 32, 28)
 DIGEST_K2_ROWS = 16384
@@ -1523,7 +1563,7 @@ def _microbench(torch) -> list:
     from magicsoup_tpu_torch.ops import cuda_integrate as ci
     from magicsoup_tpu_torch.performance import integrator_bench as ib
 
-    chain, reps = 10, 7
+    chain, reps = 10, 4
     ci.launches = 0
     rows, ok = ib.bench(16384, 32, 28, 0.75, chain, reps, list(BENCH_POINTS), "cuda")
     if not ok:
@@ -2194,7 +2234,7 @@ def _k3_entry(ladder: dict) -> dict:
 #: world's resumed steps, det dispatches per side of a checkpoint, the
 #: watchdog budget of the fetch fault, and where the files go (a
 #: git-ignored directory of the checkout, removed afterwards)
-GUARD_STEPS = 60
+GUARD_STEPS = 30
 GUARD_TOKEN_STEPS = 20
 GUARD_TRACE_STEPS = 5
 GUARD_RESUME_STEPS = 10
@@ -2271,7 +2311,7 @@ def _audit_codes(world):
 
 def _recorder_windows(torch, tmp: Path) -> tuple[dict, object, object]:
     """Phase 22.1: the classic world with a recorder attached (K1), then
-    the string stepper at K 1 on it, 60 steps each way in the order
+    the string stepper at K 1 on it, 30 steps each way in the order
     detached, attached, attached, detached, with the census checked in
     every window; the enqueue sync-free with the recorder attached; the
     JSONL validated and summarized.  Returns the numbers, the world and
@@ -2824,7 +2864,7 @@ GROUPED_GROUPS = ((2, 16384), (2, 32768))
 GROUPED_PS = (32, 28)
 #: the mixed-rung fleet, per rung: target cells, map size, seeds, capacity
 MIXED_RUNGS = ((10_000, 128, (42, 43), 16384), (20_000, 256, (44, 45), 32768))
-MIXED_WINDOW = 30
+MIXED_WINDOW = 15
 MIXED_PROFILE = 5
 AUTO_STEPS = 10
 #: the warden: phase 7's four worlds under heal, cadence 10, keep 2;
@@ -4257,10 +4297,11 @@ def _sync_item_control(torch) -> dict:
 
 def _token_sync_log(torch) -> dict:
     """The token stepper at K 1 with phase 16's selection (deaths,
-    divisions, spawns and the token mutation programs on) under
-    ``transfers="log"``: every synchronizing call it makes warns; they
-    are counted, by where they come from.  Compiles are recorded, not
-    budgeted (growth and compaction may meet new shapes)."""
+    divisions, spawns and the token mutation programs on): 5 steps under
+    ``transfers="log"``, every synchronizing call counted by where it
+    comes from (there must be none: the token programs fill their
+    operands on the device), then 5 more under ``hot_path_guard(0,
+    "disallow")``, as the string stepper runs."""
     import warnings
 
     import magicsoup_tpu_torch as mt
@@ -4273,25 +4314,50 @@ def _token_sync_log(torch) -> dict:
     st.drain()
     torch.cuda.synchronize()
     _zero_launches()
-    with warnings.catch_warnings(record=True) as caught:
+    syncs: dict[str, int] = {}
+
+    def _rel(path: str) -> str:
+        return str(Path(path).relative_to(ROOT)) if Path(path).is_relative_to(ROOT) else path
+
+    def note(message, category, filename, lineno, file=None, line=None):
+        # a warning raised inside torch is filed under the innermost frame
+        # of the port's code that called it, and the thread that ran it
+        if "called a synchronizing CUDA operation" not in str(message):
+            return
+        where = f"{_rel(filename)}:{lineno}"
+        if not Path(filename).is_relative_to(ROOT):
+            port = [f for f in traceback.extract_stack()
+                    if Path(f.filename).is_relative_to(ROOT / "magicsoup_tpu_torch")]
+            if port:
+                where += f" via {_rel(port[-1].filename)}:{port[-1].lineno} ({port[-1].name})"
+            where += f" [{threading.current_thread().name}]"
+        syncs[where] = syncs.get(where, 0) + 1
+
+    with warnings.catch_warnings():
         warnings.simplefilter("always")
+        warnings.showwarning = note
         with runtime.hot_path_guard(compile_budget=10**6, transfers="log") as stats:
             for _ in range(ANALYSIS_STEPS):
                 st.step()
             st.drain()
     torch.cuda.synchronize()
     launches = _launch_counts()
-    syncs: dict[str, int] = {}
-    for w in caught:
-        if "synchroniz" in str(w.message):
-            where = f"{Path(w.filename).relative_to(ROOT) if Path(w.filename).is_relative_to(ROOT) else w.filename}:{w.lineno}"
-            syncs[where] = syncs.get(where, 0) + 1
-    st.flush()
-    _check_state(world, "token stepper under transfers=log")
     if launches["k1_k2"] != ANALYSIS_STEPS:
         raise AssertionError(f"token stepper under transfers=log: launches {launches}")
+    if syncs:
+        raise AssertionError(f"token stepper under transfers=log: synchronizing calls {syncs}")
+
+    def run():
+        for _ in range(ANALYSIS_STEPS):
+            st.step()
+        st.drain()
+
+    guarded = _guarded(torch, "guarded token stepper K1", run, {"k1_k2": ANALYSIS_STEPS})
+    st.flush()
+    _check_state(world, "token stepper under the guard")
     return {"steps": ANALYSIS_STEPS, "compiles": stats.compiles, "launches": launches,
-            "sync_calls": sum(syncs.values()), "sync_calls_by_site": syncs}
+            "sync_calls": sum(syncs.values()), "sync_calls_by_site": syncs,
+            "guarded": guarded}
 
 
 def _warm_child(torch, out: Path) -> None:
@@ -4451,10 +4517,12 @@ def _analysis_phase(torch) -> tuple[dict, dict]:
         "k1": {"prewarm": warm_up["warm"]["prewarm_launches"],
                "first_activity": {m: warm_up[m]["first_activity_launches"] for m in warm_up}},
         "k2": {name: w["launches"]["k1_k2"] for name, w in windows.items() if name != "fused_fleet"}
-              | {"token_stepper_K1": token["launches"]["k1_k2"]},
+              | {"token_stepper_K1": token["launches"]["k1_k2"],
+                 "token_stepper_K1_guarded": token["guarded"]["launches"]["k1_k2"]},
         "grouped": windows["fused_fleet"]["launches"]["grouped"],
         "threefry": {name: w["launches"]["threefry"] for name, w in windows.items()}
-                    | {"token_stepper_K1": token["launches"]["threefry"]},
+                    | {"token_stepper_K1": token["launches"]["threefry"],
+                       "token_stepper_K1_guarded": token["guarded"]["launches"]["threefry"]},
     }
     return {
         "item_control": control,
@@ -4465,6 +4533,256 @@ def _analysis_phase(torch) -> tuple[dict, dict]:
         "lint": lint,
         "wall_s": time.perf_counter() - t0,
     }, launches
+
+
+# --------------------------------------------------------------------- #
+# phase 27: the measurement drivers on the card                         #
+# --------------------------------------------------------------------- #
+DRIVERS_DIR = ROOT / "build" / "chip_smoke_drivers"
+#: where phase 27 runs (a CPU rehearsal at a tiny size sets "cpu")
+DRIVERS_DEVICE = "cuda"
+#: every driver runs at the headline's width, each at its own depth; the
+#: in-process bench's depth (the child runs the command's defaults)
+DRIVER_BENCH = dict(warmup=3, steps=10)
+DRIVER_RUN_SIM = dict(classic=30, pipelined=10)
+DRIVER_CHECK = dict(s=1000, r=2)
+DRIVER_PROFILE = dict(warmup=5, steps=10)
+DRIVER_MEGASTEP = dict(ks=(1, 4), steps=24, warmup=6)
+DRIVER_FLEET = dict(bs=(1, 4, 16), ks=(1, 4), steps=16, warmup=4, mixed_bs=(4,), rungs=(2,))
+DRIVER_MESH = dict(devices=(1, 2), steps=16, warmup=4, check_steps=8)
+DRIVER_TIMEOUT = 600
+#: the bench child's command line, as a user runs the headline
+BENCH_CHILD_ARGS = ["--config", "headline"]
+#: bench.py's result keys (its ``emit``, bench.py:319-340; the pipelined
+#: fields, :388-395, 429); the port adds "device"
+BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "device_rtt_ms", "rtt_free_steps_per_s"}
+BENCH_CLASSIC_KEYS = BENCH_KEYS | {"driver", "device"}
+BENCH_HEADLINE_KEYS = BENCH_KEYS | {"classic_steps_per_s", "pipelined_steps_per_s", "megastep",
+                                    "pipeline_stats", "driver", "device"}
+#: each sweep's row keys in its JAX script, plus the port's
+CHECK_KEYS = {"metric", "op", "value", "unit", "sd", "repeats", "n_cells", "genome_size",
+              "backend", "device"}
+CHECK_OPS = ["spawn_cells", "update_cells", "divide_cells", "enzymatic_activity", "mutations"]
+PROFILE_KEYS = {"device", "rtt_ms", "n_cells_end", "s_per_step", "steps_per_s"}
+MEGASTEP_KEYS = {"metric", "value", "unit", "megastep", "dispatches", "ms_per_step",
+                 "dispatch_ms_median", "final_n_cells", "pinned_population", "backend", "device"}
+FLEET_KEYS = {"metric", "value", "unit", "fleet_size", "megastep", "dispatches", "ms_per_step",
+              "aggregate_steps_per_s", "groups", "backend", "device"}
+FUSED_KEYS = {"metric", "value", "unit", "rungs", "fleet_size", "worlds", "fused", "megastep",
+              "dispatches", "ms_per_step", "backend", "device"}
+MESH_KEYS = {"metric", "value", "unit", "n_devices", "megastep", "ms_per_step", "final_n_cells",
+             "driver", "backend", "device", "cards"}
+MESH_CHECK_KEYS = {"metric", "ok", "n_devices", "steps", "final_n_cells", "device", "cards"}
+
+
+def _sync_device(torch) -> None:
+    if DRIVERS_DEVICE == "cuda":
+        torch.cuda.synchronize()
+
+
+def _driver(torch, module: str, argv: list, want: dict) -> dict:
+    """``python -m magicsoup_tpu_torch.performance.<module> *argv``, called
+    in this process through its ``main(argv)`` with the launch counts set
+    to 0 just before: it must return 0 and launch ``want``.  Returns its
+    JSON rows, its other lines, its launches and its seconds."""
+    import importlib
+    import io
+
+    mod = importlib.import_module(f"magicsoup_tpu_torch.performance.{module}")
+    argv = [str(a) for a in argv] + ["--device", DRIVERS_DEVICE]
+    out = io.StringIO()
+    _sync_device(torch)
+    _zero_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = mod.main(argv)
+    _sync_device(torch)
+    seconds = time.perf_counter() - t0
+    launches = _launch_counts()
+    lines = out.getvalue().splitlines()
+    if rc != 0:
+        raise AssertionError(f"driver {module} {argv} exited {rc}:\n" + "\n".join(lines[-40:]))
+    if any(launches[k] != v for k, v in want.items()):
+        raise AssertionError(f"driver {module}: launches {launches}, want {want}")
+    rows = [json.loads(line) for line in lines if line.startswith("{")]
+    text = [line for line in lines if not line.startswith("{")]
+    return {"argv": argv, "rows": rows, "lines": text, "launches": launches, "seconds": seconds}
+
+
+def _keys(rows, want: set, label: str) -> None:
+    for row in rows:
+        if set(row) != want:
+            raise AssertionError(f"{label}: keys {sorted(set(row) ^ want)} differ from the"
+                                 f" JAX script's; row {row}")
+
+
+def _bench_child(torch) -> dict:
+    """``python -m magicsoup_tpu_torch.performance.bench --config headline``
+    as a user runs it: its classic line, then its headline line, with
+    bench.py's keys; the value is the faster driver's."""
+    import subprocess
+
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "magicsoup_tpu_torch.performance.bench", *BENCH_CHILD_ARGS,
+         "--device", DRIVERS_DEVICE],
+        capture_output=True, text=True, timeout=DRIVER_TIMEOUT, cwd=ROOT,
+    )
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"bench exited {proc.returncode}:\n{proc.stdout[-3000:]}"
+                             f"\n{proc.stderr[-6000:]}")
+    lines = [line for line in proc.stdout.splitlines() if line.startswith("{")]
+    classic, head = (json.loads(line) for line in lines[-2:])
+    _keys([classic], BENCH_CLASSIC_KEYS, "bench's classic line")
+    _keys([head], BENCH_HEADLINE_KEYS, "bench's headline line")
+    if not classic["metric"].endswith(" [classic]") or head["metric"] + " [classic]" != classic["metric"]:
+        raise AssertionError(f"bench's metric names: {classic['metric']!r}, {head['metric']!r}")
+    if head["value"] != max(head["classic_steps_per_s"], head["pipelined_steps_per_s"]):
+        raise AssertionError(f"bench's headline value is not the faster driver's: {head}")
+    if not all(math.isfinite(head[k]) and head[k] > 0 for k in
+               ("value", "vs_baseline", "classic_steps_per_s", "pipelined_steps_per_s")):
+        raise AssertionError(f"bench's headline: {head}")
+    trace = [line for line in proc.stderr.splitlines() if line.startswith("[trace]")]
+    return {"classic": classic, "headline": head, "trace": trace, "seconds": seconds}
+
+
+def _bench_in_process(torch) -> dict:
+    """The same measurement in this process at a cut depth, so that its
+    launches per step can be read: one K1 launch per classic step, one
+    K2 launch per simulated step of the pipelined driver."""
+    w, n = DRIVER_BENCH["warmup"], DRIVER_BENCH["steps"]
+    classic_steps, pipelined_steps = w + n, max(w, 3) + 4 * n
+    got = _driver(torch, "bench", ["--n-cells", N_CELLS, "--map-size", MAP_SIZE,
+                                   "--genome-size", GENOME_SIZE, "--seed", SEED,
+                                   "--warmup", w, "--steps", n],
+                  {"k1_k2": classic_steps + pipelined_steps, "grouped": 0})
+    _keys(got["rows"][-1:], BENCH_HEADLINE_KEYS, "bench in process")
+    got["classic_steps"], got["pipelined_steps"] = classic_steps, pipelined_steps
+    got["threefry_per_pipelined_step"] = got["launches"]["threefry"] / pipelined_steps
+    return got
+
+
+def _run_simulation(torch) -> dict:
+    """``run_simulation`` classic and ``--pipelined`` at the headline's
+    width under ``build/``: a ``save_state`` at step 0 (and a ``save_run``
+    with the stepper), a final checkpoint that restores on the card and
+    verifies, one launch per step."""
+    import shutil
+
+    from magicsoup_tpu_torch import guard
+
+    out = {}
+    for mode, n in DRIVER_RUN_SIM.items():
+        logdir = DRIVERS_DIR / f"run_simulation_{mode}"
+        shutil.rmtree(logdir, ignore_errors=True)
+        argv = ["--map-size", MAP_SIZE, "--n-cells", N_CELLS, "--n-steps", n,
+                "--logdir", logdir] + (["--pipelined"] if mode == "pipelined" else [])
+        got = _driver(torch, "run_simulation", argv, {"k1_k2": n, "grouped": 0})
+        final = [line for line in got["lines"] if "final n_cells=" in line]
+        n_final = int(final[0].split("final n_cells=")[1])
+        ckpts = sorted((logdir / "checkpoints").glob("*.msck"))
+        if not (logdir / "step=0" / "cell_molecules.npy").exists() or not ckpts:
+            raise AssertionError(f"run_simulation {mode}: no state at step 0 or no checkpoint")
+        if mode == "pipelined" and len(ckpts) != 2:
+            raise AssertionError(f"run_simulation pipelined: checkpoints {ckpts}")
+        world, _, meta = guard.restore_run(guard.CheckpointManager(logdir / "checkpoints"),
+                                           device=DRIVERS_DEVICE)
+        if world.n_cells != n_final or not meta.get("final"):
+            raise AssertionError(f"run_simulation {mode}: the final checkpoint holds"
+                                 f" {world.n_cells} cells ({meta}), the run {n_final}")
+        _check_state(world, f"run_simulation {mode}'s final checkpoint")
+        del world
+        got.update(final_n_cells=n_final, checkpoints=len(ckpts))
+        out[mode] = got
+    return out
+
+
+def _sweeps(torch) -> dict:
+    """check, profile_step, megastep_sweep, fleet_sweep (and its
+    ``--mixed-rungs``) and mesh_sweep (and its ``--check``), each with its
+    JAX script's keys and its launches."""
+    width = ["--n-cells", N_CELLS, "--map-size", MAP_SIZE, "--genome-size", GENOME_SIZE,
+             "--seed", SEED]
+    out = {}
+    r = DRIVER_CHECK["r"]
+    out["check"] = _driver(torch, "check", ["--n", N_CELLS, "--s", DRIVER_CHECK["s"], "--r", r,
+                                            "--json"], {"k1_k2": r + 1, "grouped": 0})
+    _keys(out["check"]["rows"], CHECK_KEYS, "check")
+    if [row["op"] for row in out["check"]["rows"]] != CHECK_OPS:
+        raise AssertionError(f"check's ops: {[row['op'] for row in out['check']['rows']]}")
+
+    w, n = DRIVER_PROFILE["warmup"], DRIVER_PROFILE["steps"]
+    out["profile_step"] = _driver(torch, "profile_step", width + ["--warmup", w, "--steps", n],
+                                  {"k1_k2": w + n, "grouped": 0})
+    _keys(out["profile_step"]["rows"], PROFILE_KEYS, "profile_step")
+
+    ms = DRIVER_MEGASTEP
+    disp = {k: max(ms["warmup"], 3) + -(-ms["steps"] // k) for k in ms["ks"]}
+    out["megastep_sweep"] = _driver(
+        torch, "megastep_sweep", width + ["--ks", ",".join(map(str, ms["ks"])),
+                                          "--steps", ms["steps"], "--warmup", ms["warmup"]],
+        {"k1_k2": sum(d * k for k, d in disp.items()), "grouped": 0})
+    _keys(out["megastep_sweep"]["rows"], MEGASTEP_KEYS, "megastep_sweep")
+
+    fl = DRIVER_FLEET
+    per_point = {k: (max(fl["warmup"], 2) + -(-fl["steps"] // k)) * k for k in fl["ks"]}
+    fleet_argv = width + ["--steps", fl["steps"], "--warmup", fl["warmup"]]
+    out["fleet_sweep"] = _driver(
+        torch, "fleet_sweep", fleet_argv + ["--bs", ",".join(map(str, fl["bs"])),
+                                            "--ks", ",".join(map(str, fl["ks"]))],
+        {"k1_k2": len(fl["bs"]) * sum(per_point.values()), "grouped": 0})
+    _keys(out["fleet_sweep"]["rows"], FLEET_KEYS, "fleet_sweep")
+    if any(row["groups"] != 1 for row in out["fleet_sweep"]["rows"]):
+        raise AssertionError("fleet_sweep: a fleet took more than one group")
+    # per (rungs, B) point: R K2 launches per simulated step per rung,
+    # then one grouped launch per simulated step fused
+    k0 = fl["ks"][0]
+    n_mixed = len(fl["mixed_bs"]) * per_point[k0]
+    out["fleet_sweep_mixed"] = _driver(
+        torch, "fleet_sweep", fleet_argv + ["--mixed-rungs", "--rungs",
+                                            ",".join(map(str, fl["rungs"])),
+                                            "--bs", ",".join(map(str, fl["mixed_bs"])),
+                                            "--ks", k0],
+        {"k1_k2": sum(fl["rungs"]) * n_mixed, "grouped": len(fl["rungs"]) * n_mixed})
+    rows = out["fleet_sweep_mixed"]["rows"]
+    _keys([row for row in rows if not row["fused"]], FUSED_KEYS, "fleet_sweep --mixed-rungs")
+    _keys([row for row in rows if row["fused"]], FUSED_KEYS | {"speedup"},
+          "fleet_sweep --mixed-rungs (fused)")
+
+    me = DRIVER_MESH
+    out["mesh_sweep"] = _driver(
+        torch, "mesh_sweep", width + ["--devices", ",".join(map(str, me["devices"])),
+                                      "--steps", me["steps"], "--warmup", me["warmup"]],
+        # the one-device row runs in this process; the ranks' launches are
+        # their own processes'
+        {"k1_k2": max(me["warmup"], 2) + me["steps"], "grouped": 0})
+    _keys(out["mesh_sweep"]["rows"], MESH_KEYS, "mesh_sweep")
+    out["mesh_sweep_check"] = _driver(
+        torch, "mesh_sweep", width + ["--check", "--devices", "2", "--steps", me["check_steps"]],
+        {"k1_k2": 0, "grouped": 0})
+    _keys(out["mesh_sweep_check"]["rows"], MESH_CHECK_KEYS, "mesh_sweep --check")
+    if not all(row["ok"] for row in out["mesh_sweep_check"]["rows"]):
+        raise AssertionError("mesh_sweep --check: the mesh differs from one device")
+    return out
+
+
+def _drivers_phase(torch) -> tuple[dict, dict]:
+    """Phase 27: the measurement drivers at the headline's width; returns
+    its record and the launches per kernel."""
+    DRIVERS_DIR.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    out = {"bench": _bench_child(torch), "bench_in_process": _bench_in_process(torch),
+           "run_simulation": _run_simulation(torch)}
+    out.update(_sweeps(torch))
+    out["wall_s"] = time.perf_counter() - t0
+    runs = {"bench": out["bench_in_process"]}
+    runs.update({f"run_simulation_{m}": v for m, v in out["run_simulation"].items()})
+    runs.update({k: v for k, v in out.items() if k not in ("bench", "bench_in_process",
+                                                          "run_simulation", "wall_s")})
+    launches = {kind: {name: r["launches"][kind] for name, r in runs.items()}
+                for kind in ("k1_k2", "grouped", "threefry")}
+    return out, launches
 
 
 def main() -> None:
@@ -4496,14 +4814,19 @@ def main() -> None:
         PARENT = _load_parent(args.parent.resolve(), "cuda_integrate", "integrate.cu")
         PARENT_LADDER = _load_parent(args.parent.resolve(), "cuda_bisect", "bisect.cu")
     _build()
+    _lap("1 build")
     digests = _digests(torch)
     print(json.dumps({"digests": digests}))
+    _lap("10 digests")
     sweep = _sweep(torch)
     print(json.dumps({"sweep": sweep}))
+    _lap("8 sweep")
     ladder = _ladder(torch)
     print(json.dumps({"kernel_bisect": ladder}))
+    _lap("11 ladder")
     threefry = _threefry(torch)
     print(json.dumps({"threefry": threefry}))
+    _lap("14 threefry")
 
     world, spawn_s = _workload(torch)
     p, s = world.kinetics.max_proteins, 2 * world.n_molecules
@@ -4521,9 +4844,11 @@ def main() -> None:
     work["spawn_s"] = spawn_s
     work["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
     print(json.dumps({"workload": work}))
+    _lap("2-5 classic")
     restored = {"string": _persistence(torch, world)}
     print(json.dumps({"persistence": {"string": restored["string"]}}))
     print(json.dumps({"api": {"string": _api(torch, world)}}))
+    _lap("19-20 string")
     del world
 
     token_world, token_spawn_s = _workload(torch, genome_backend="token")
@@ -4533,11 +4858,13 @@ def main() -> None:
     token_work["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
     token_work["string_steps_per_s"] = work["steps_per_s"]
     print(json.dumps({"token_workload": token_work}))
+    _lap("15 token classic")
     restored["token"] = _persistence(torch, token_world)
     print(json.dumps({"persistence": {"token": restored["token"]}}))
     print(json.dumps({"api": {"token": _api(torch, token_world)}}))
     del token_world
     print(json.dumps({"persistence": {"det_restore": _det_restore(torch)}}))
+    _lap("19-20 token, det restore")
     # K1 launches on the new paths: the restored worlds' steps
     kernel["restored_launches"] = {k: v["restored_launches"] for k, v in restored.items()}
 
@@ -4549,10 +4876,12 @@ def main() -> None:
                 stepper_inputs = taps.inputs
         stepper["token_K1"] = _stepper_run(torch, taps, 1, capture=False, genome_backend="token")
         print(json.dumps({"stepper": stepper}))
+        _lap("6, 16 stepper")
         fleet = _fleet_run(torch, taps)
         fleet_inputs = taps.inputs
         fleet_token = _fleet_run(torch, taps, genome_backend="token")
         print(json.dumps({"fleet": {"string": fleet, "token": fleet_token}}))
+        _lap("7, 17 fleet")
     print(json.dumps({"flags_per_window": taps.flags}))
     if taps.unexpected():
         raise AssertionError(f"flags other than dead_param_residue tripped: {taps.unexpected()}")
@@ -4569,6 +4898,7 @@ def main() -> None:
         "fleet": _k2_real_state(torch, fleet_inputs, "K2 on the fleet's state"),
     }
     print(json.dumps({"k2_real_state": real}))
+    _lap("9 K2 checks")
     main_shape = seeded[f"q{cap}"]
     k2 = {
         "name": "integrate_signals_batched",
@@ -4596,25 +4926,33 @@ def main() -> None:
 
     bench = _microbench(torch)
     print(json.dumps({"integrator_bench": bench}))
+    _lap("12 microbench")
     genome_ops = _genome_ops()
     print(json.dumps({"genome_ops": genome_ops}))
+    _lap("18 genome ops")
     det = _det_on_card(torch)
     print(json.dumps({"det_on_card": det}))
+    _lap("13 det on card")
     print(json.dumps({"differential": _differential(torch)}))
+    _lap("21 differential")
     guard_phase, guard_launches = _guard_phase(torch)
     print(json.dumps({"guard": guard_phase}))
+    _lap("22 guard")
     kernel["guard_launches"] = {"classic_with_recorder": guard_launches["k1_classic_with_recorder"]}
     k2["guard_launches"] = {k[3:]: v for k, v in guard_launches.items() if k.startswith("k2_")}
     fleet_phase, grouped = _fleet_phase(torch)
     print(json.dumps({"fused_fleet": fleet_phase}))
+    _lap("23 fused fleet")
     k2["fleet_restore_launches"] = fleet_phase["fleet_checkpoint"]["restored_launches"]
     k2["mixed_fleet_per_rung_launches"] = fleet_phase["mixed_fleet"]["launches"]["rung"]
     serve, serve_launches = _serve_phase(torch, fleet["steps_per_s_aggregate"])
     print(json.dumps({"serve": serve}))
+    _lap("24 serve")
     k2["serve_launches"] = serve_launches["k2"]
     grouped["serve_launches"] = serve_launches["grouped"]
     meshes = _mesh_phase(torch)
     print(json.dumps({"meshes": meshes}))
+    _lap("25 meshes")
     head = meshes["headline"]["ranks"]
     kernel["mesh_launches"] = {"classic_per_rank": [r["classic"]["k1_k2"] for r in head]}
     k2["mesh_launches"] = {
@@ -4624,9 +4962,21 @@ def main() -> None:
 
     analysis, analysis_launches = _analysis_phase(torch)
     print(json.dumps({"analysis": analysis}))
+    _lap("26 analysis")
     kernel["analysis_launches"] = analysis_launches["k1"]
     k2["analysis_launches"] = analysis_launches["k2"]
     grouped["analysis_launches"] = analysis_launches["grouped"]
+
+    drivers, driver_launches = _drivers_phase(torch)
+    print(json.dumps({"drivers": drivers}))
+    _lap("27 drivers")
+    # the classic drivers launch K1, the stepper and fleet drivers K2
+    classic_drivers = ("bench", "run_simulation_classic", "check", "profile_step")
+    kernel["drivers_launches"] = {k: v for k, v in driver_launches["k1_k2"].items()
+                                  if k in classic_drivers}
+    k2["drivers_launches"] = {k: v for k, v in driver_launches["k1_k2"].items()
+                              if k not in classic_drivers or k == "bench"}
+    grouped["drivers_launches"] = {"fleet_sweep_mixed": driver_launches["grouped"]["fleet_sweep_mixed"]}
 
     from magicsoup_tpu_torch.performance import card_line
 
@@ -4644,7 +4994,9 @@ def main() -> None:
                                    for r in head],
         "mesh_det_gloo_rank0": sum(v["threefry"] for v in meshes["det_gloo"].values()),
         "analysis_windows": analysis_launches["threefry"],
+        "drivers": driver_launches["threefry"],
     }
+    print(json.dumps({"phase_seconds": _LAPS}))
     print(json.dumps({"run": {"wall_s": time.perf_counter() - RUN_T0}}))
     print(json.dumps({"kernels": [kernel, k2, grouped, _k3_entry(ladder),
                                   _threefry_entry(threefry, per_path)]}))

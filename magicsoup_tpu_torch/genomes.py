@@ -272,9 +272,11 @@ def _recombinations_program(tokens, lengths, pair_a, pair_b, valid, key, log1mp,
     out_tokens[dst_b] = new_b
     out_lengths[dst_a] = len_a
     out_lengths[dst_b] = len_b
+    # index_fill_ takes the fill as a kernel argument; an advanced-index
+    # write of a Python scalar would copy it over from the host
     changed = torch.zeros(cap + 1, dtype=torch.bool, device=dev)
-    changed[row_a] = True
-    changed[row_b] = True
+    changed.index_fill_(0, row_a, True)
+    changed.index_fill_(0, row_b, True)
     return out_tokens[:cap], out_lengths[:cap], changed[:cap]
 
 
@@ -321,8 +323,9 @@ def _as_key(seed: int | None, device: torch.device) -> torch.Tensor:
 
 def _scalar(x: float, device: torch.device) -> torch.Tensor:
     """A float32 operand on ``device`` (the JAX package uploads
-    ``np.float32`` rates)."""
-    return torch.tensor(np.float32(x), device=device)
+    ``np.float32`` rates), filled on the device: no host->device copy.
+    A Python float made from an f32 converts back to the same bits."""
+    return torch.full((), float(np.float32(x)), dtype=torch.float32, device=device)
 
 
 def point_mutations_tokens(

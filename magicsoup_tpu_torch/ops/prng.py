@@ -68,8 +68,13 @@ def key_words(seed: int) -> np.ndarray:
 
 
 def prng_key(seed: int, device=None) -> torch.Tensor:
-    """``jax.random.PRNGKey(seed)`` as a ``(2,)`` int64 tensor."""
-    return torch.tensor(key_words(seed), dtype=torch.int64, device=device)
+    """``jax.random.PRNGKey(seed)`` as a ``(2,)`` int64 tensor, filled word
+    by word on its device: no host->device copy, which would synchronize."""
+    hi, lo = key_words(seed).tolist()
+    key = torch.empty(2, dtype=torch.int64, device=device)
+    key[0].fill_(hi)
+    key[1].fill_(lo)
+    return key
 
 
 def hash_counters_plain(key: torch.Tensor, shape: tuple[int, ...], pair: bool = False):
