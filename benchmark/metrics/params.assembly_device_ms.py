@@ -1,0 +1,7 @@
+"""Device milliseconds per traced step of the kernels launched inside
+the program's ``ms:assemble`` spans."""
+from benchmark import program_spans
+
+
+def read(run):
+    return program_spans.device_ms_per_step(run, "ms:assemble")

@@ -31,6 +31,7 @@ concatenated into one fetch buffer.
 import torch
 import torch.nn.functional as F
 
+from magicsoup_tpu_torch import telemetry as _telemetry
 from magicsoup_tpu_torch.ops import backends as _backends
 from magicsoup_tpu_torch.ops.integrate import CellParams
 from magicsoup_tpu_torch.stepper import (
@@ -146,7 +147,7 @@ def fused_step_program(
                 )
             X0s.append(X0)
             pqs.append(pq)
-        with torch.profiler.record_function("ms:activity"):
+        with _telemetry.span("ms:activity"):
             X1s = _backends.integrate_grouped([statics[r][4] for r in active], X0s, pqs)
         for r, X1 in zip(active, X1s):
             det, max_div, n_rounds, k, _ = statics[r]

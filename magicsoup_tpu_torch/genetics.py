@@ -30,6 +30,7 @@ from magicsoup_tpu_torch.native import (
     pack_dense,
     translate_genomes_flat,
 )
+from magicsoup_tpu_torch.telemetry import recorder as _telemetry
 from magicsoup_tpu_torch.util import codons
 
 
@@ -332,6 +333,8 @@ class PhenotypeCache:
         self.hits += n_hits
         self.misses += len(misses)
         _runtime.note_phenotype_cache(hits=n_hits, misses=len(misses))
+        _telemetry.count("phenotype.hits", n_hits)
+        _telemetry.count("phenotype.misses", len(misses))
         return [entries[g] for g in genomes]
 
     # graftlint: hot
@@ -375,6 +378,8 @@ class PhenotypeCache:
         self.hits += n_hits
         self.misses += len(miss_keys)
         _runtime.note_phenotype_cache(hits=n_hits, misses=len(miss_keys))
+        _telemetry.count("phenotype.hits", n_hits)
+        _telemetry.count("phenotype.misses", len(miss_keys))
         return [entries[h] for h in hashes]
 
     # graftlint: hot

@@ -25,6 +25,7 @@ import numpy as np
 from magicsoup_tpu_torch._build import build_shared
 from magicsoup_tpu_torch.native import _pyengine
 from magicsoup_tpu_torch.native._pyengine import TranslationTables
+from magicsoup_tpu_torch.telemetry import recorder as _telemetry
 
 _SRC = Path(__file__).parent / "src" / "genome.cpp"
 _BUILD_LOCK = threading.Lock()
@@ -276,8 +277,9 @@ def point_mutations(
     """
     if len(seqs) == 0:
         return []
-    lens = np.fromiter((len(s) for s in seqs), dtype=np.int64, count=len(seqs))
-    sel, counts = _poisson_select(lens, p, seed)
+    with _telemetry.span("ms:lengths"):
+        lens = np.fromiter((len(s) for s in seqs), dtype=np.int64, count=len(seqs))
+        sel, counts = _poisson_select(lens, p, seed)
     if len(sel) == 0:
         return []
     sub = [seqs[int(i)] for i in sel]
@@ -353,11 +355,12 @@ def recombinations_indexed(
     """
     if len(pair_idxs) == 0:
         return []
-    lens = np.fromiter(
-        (len(g) for g in genomes), dtype=np.int64, count=len(genomes)
-    )
-    pair_lens = lens[pair_idxs[:, 0]] + lens[pair_idxs[:, 1]]
-    sel, counts = _poisson_select(pair_lens, p, seed)
+    with _telemetry.span("ms:lengths"):
+        lens = np.fromiter(
+            (len(g) for g in genomes), dtype=np.int64, count=len(genomes)
+        )
+        pair_lens = lens[pair_idxs[:, 0]] + lens[pair_idxs[:, 1]]
+        sel, counts = _poisson_select(pair_lens, p, seed)
     if len(sel) == 0:
         return []
     sub = [

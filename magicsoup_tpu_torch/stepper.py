@@ -81,6 +81,7 @@ from magicsoup_tpu_torch.ops import diffusion as _diff
 from magicsoup_tpu_torch.ops import prng as _prng
 from magicsoup_tpu_torch.ops.integrate import CellParams
 from magicsoup_tpu_torch.parallel import tiled as _tiled
+from magicsoup_tpu_torch import telemetry as _telemetry
 from magicsoup_tpu_torch.telemetry import TelemetryRecorder
 from magicsoup_tpu_torch.telemetry import metrics as _metrics
 from magicsoup_tpu_torch.telemetry.recorder import note_fetch
@@ -468,24 +469,6 @@ def _row_has_params(params: CellParams, mesh) -> torch.Tensor:
     return has if mesh is None else mesh.all_gather(has, 1)
 
 
-class _Phases:
-    """Profiler ranges over the step body's phases (the JAX package's
-    ``jax.named_scope`` names): ``phase(name)`` closes the open range and
-    opens the next, ``phase(None)`` closes the last.  A range costs a few
-    microseconds of host time, and nothing on the device."""
-
-    def __init__(self):
-        self._open = None
-
-    def __call__(self, name: str | None) -> None:
-        if self._open is not None:
-            self._open.__exit__(None, None, None)
-            self._open = None
-        if name is not None:
-            self._open = torch.profiler.record_function(name)
-            self._open.__enter__()
-
-
 class StepCarry(NamedTuple):
     """What one step's pre-activity phases hand the rest of the step: the
     state after push and spawn and the values the later phases read."""
@@ -516,7 +499,7 @@ def step_pre_activity(
     and its parameters (the q-row prefixes of ``params``).  The parameter
     tensors are written in place.  Under a ``mesh`` the state is the
     gathered one and ``params`` the rank's slot block."""
-    phase = _Phases()
+    phase = _telemetry.phases()
     mm, cm, pos, occ, alive, n_rows, key = state
     B, cap, n_mols = cm.shape
     m = occ.shape[-1]
@@ -611,7 +594,7 @@ def step_post_activity(
     place.  Under a ``mesh`` (gathered state, the rank's parameter
     block) the rows of new cells cross to their owners' blocks and the
     record gains the per-tile occupancy tail."""
-    phase = _Phases()
+    phase = _telemetry.phases()
     mm, cm, pos, occ, alive, n_rows, key = carry.state
     k_div, mol_onehot = carry.k_div, carry.mol_onehot
     spawn_ok, spawn_pos = carry.spawn_ok, carry.spawn_pos
@@ -831,7 +814,7 @@ def _step_body(
     carry, X0, params_q = step_pre_activity(
         state, params, consts, inputs, first=first, n_rounds=n_rounds, q=q
     )
-    with torch.profiler.record_function("ms:activity"):
+    with _telemetry.span("ms:activity"):
         X1 = _backends.integrate(integrator, X0, params_q)
     return step_post_activity(
         carry, X1, params, consts, inputs,
@@ -865,7 +848,7 @@ def _mesh_step_body(
         full, params, consts, inputs, first=first, n_rounds=n_rounds, q=cap, mesh=mesh
     )
     lo, hi = mesh.block(cap)
-    with torch.profiler.record_function("ms:activity"):
+    with _telemetry.span("ms:activity"):
         X1 = _backends.integrate(integrator, X0[:, lo:hi].contiguous(), params_q, mesh=mesh)
         X1 = mesh.all_gather(X1, 1)
     new, params, out = step_post_activity(

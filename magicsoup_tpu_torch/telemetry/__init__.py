@@ -6,7 +6,11 @@ Zero-sync telemetry for the step loop.  Counterpart of
   buffered JSONL emission), :class:`TelemetrySnapshot` (one view of the
   runtime counters), :func:`trace_window` (a ``torch.profiler`` capture
   of a steady-state window, written as a Chrome trace) and the
-  ``note_fetch``/``fetch_stats`` device->host accounting.
+  ``note_fetch``/``fetch_stats`` device->host accounting.  The port's
+  own span plane, outside ``__all__`` (which is the JAX package's):
+  :func:`span` and :class:`phases` for code that holds no recorder,
+  :func:`count`, and the process-wide :func:`span_totals` and
+  :func:`counter_totals`.
 - :mod:`.summary`: stdlib-pure JSONL parsing, validation and aggregation.
 - :mod:`.metrics`: the stdlib-pure metrics registry (Prometheus text
   exposition) and the ``note_device_time``/``device_time_stats``
@@ -25,9 +29,14 @@ telemetry on or off.
 from magicsoup_tpu_torch.telemetry.recorder import (
     TelemetryRecorder,
     TelemetrySnapshot,
+    count,
+    counter_totals,
     fetch_stats,
     note_fetch,
+    phases,
     runtime_counters,
+    span,
+    span_totals,
     trace_window,
 )
 from magicsoup_tpu_torch.telemetry.metrics import (

@@ -16,6 +16,15 @@ The zero-sync telemetry recorder.  Counterpart of
 - **Bounded memory.**  Per-phase timing keeps exact count/total/max
   plus a bounded ring of recent samples for percentiles; the JSONL
   buffer flushes every ``flush_every`` rows.
+- **One span mechanism.**  :meth:`TelemetryRecorder.span` and the
+  module-level :func:`span` (for code that holds no recorder; it goes to
+  the recorder whose span is open on the thread) time a phase on the
+  host, note its self time (its duration less that of the spans nested
+  in it on its thread), and, only while a ``torch.profiler`` records,
+  open a ``record_function`` range of the same name, on the clock of
+  the device trace.  :func:`count` adds to a counter at the same
+  boundaries; :func:`span_totals` and :func:`counter_totals` are the
+  process-wide totals, and those of the latest profiled window.
 
 Usage::
 
@@ -36,6 +45,8 @@ import threading
 import time
 import warnings
 import weakref
+
+import torch
 
 from magicsoup_tpu_torch.analysis import ownership
 from magicsoup_tpu_torch.guard import chaos as _chaos
@@ -77,6 +88,162 @@ def runtime_counters() -> dict[str, int]:
     out = dict(_rt.snapshot())
     out.update(fetch_stats())
     return out
+
+
+# ------------------------------------------------------------------ spans
+# the open spans of each thread, innermost last
+_tls = threading.local()
+_totals_lock = threading.Lock()
+# span name -> [n, total_s, self_s]; counter name -> sum.  "all" holds
+# every span and count of the process, "profiled" those of the latest
+# window in which a torch profiler recorded
+_span_totals: dict[str, dict[str, list]] = {"all": {}, "profiled": {}}
+_counter_totals: dict[str, dict[str, int]] = {"all": {}, "profiled": {}}
+_profiling = torch._C._autograd._profiler_enabled
+_profiled_window = False  # whether the last span or count saw a profiler
+
+
+def _profiled() -> bool:
+    """Whether a profiler records now; the first span or count of a
+    profiled window clears the profiled totals of the last one."""
+    global _profiled_window
+    on = _profiling()
+    if on != _profiled_window:
+        with _totals_lock:
+            if on and not _profiled_window:
+                _span_totals["profiled"].clear()
+                _counter_totals["profiled"].clear()
+            _profiled_window = on
+    return on
+
+
+def _open_spans() -> list:
+    stack = getattr(_tls, "stack", None)
+    if stack is None:
+        stack = _tls.stack = []
+    return stack
+
+
+def _add_span(table: dict, name: str, seconds: float, self_s: float) -> None:
+    rec = table.get(name)
+    if rec is None:
+        rec = table[name] = [0, 0.0, 0.0]
+    rec[0] += 1
+    rec[1] += seconds
+    rec[2] += self_s
+
+
+class _Span:
+    """One span: entered by ``with``, see :func:`span`."""
+
+    __slots__ = ("name", "recorder", "child_s", "_t0", "_range")
+
+    def __init__(self, name: str, recorder: "TelemetryRecorder | None"):
+        self.name = name
+        self.recorder = recorder
+
+    def __enter__(self) -> "_Span":
+        stack = _open_spans()
+        if self.recorder is None and stack:
+            self.recorder = stack[-1].recorder
+        self._range = None
+        if _profiled():
+            self._range = torch.profiler.record_function(self.name)
+            self._range.__enter__()
+        self.child_s = 0.0
+        stack.append(self)
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        seconds = time.perf_counter() - self._t0
+        stack = _open_spans()
+        if stack and stack[-1] is self:
+            stack.pop()
+        elif self in stack:
+            # spans above it were left open by an exception
+            del stack[stack.index(self):]
+        else:
+            stack = ()  # an abandoned sequence's span, already off the stack
+        if stack:
+            stack[-1].child_s += seconds
+        profiled = self._range is not None
+        if profiled:
+            self._range.__exit__(*exc)
+        self_s = seconds - self.child_s
+        with _totals_lock:
+            _add_span(_span_totals["all"], self.name, seconds, self_s)
+            if profiled:
+                _add_span(_span_totals["profiled"], self.name, seconds, self_s)
+        if self.recorder is not None:
+            self.recorder._note_span(self.name, seconds, self_s)
+
+
+def span(name: str) -> _Span:
+    """A span for code that holds no recorder: ``with span("ms:lengths"):``.
+    It goes to the recorder whose span is open on the current thread (to
+    none where no span is open), and to the process-wide
+    :func:`span_totals`; while a profiler records it is also a
+    ``record_function`` range."""
+    return _Span(name, None)
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to the counter ``name``: process-wide, in the profiled
+    window's totals while a profiler records, and on the recorder whose
+    span is open on the current thread."""
+    profiled = _profiled()
+    with _totals_lock:
+        for key in ("all", "profiled") if profiled else ("all",):
+            table = _counter_totals[key]
+            table[name] = table.get(name, 0) + n
+    stack = _open_spans()
+    if stack and stack[-1].recorder is not None:
+        stack[-1].recorder._count(name, n)
+
+
+def span_totals(profiled: bool = False) -> dict[str, tuple[int, float, float]]:
+    """Process-wide ``{name: (n, total_s, self_s)}`` of every span since
+    the process started, whichever recorder it went to (take differences
+    over a window); with ``profiled``, of the spans entered while a
+    ``torch.profiler`` recorded, in the latest profiled window: the host
+    side of a device trace."""
+    with _totals_lock:
+        table = _span_totals["profiled" if profiled else "all"]
+        return {k: (v[0], v[1], v[2]) for k, v in table.items()}
+
+
+def counter_totals(profiled: bool = False) -> dict[str, int]:
+    """Process-wide ``{name: sum}`` of every :func:`count`; with
+    ``profiled``, of those made in the latest profiled window."""
+    with _totals_lock:
+        return dict(_counter_totals["profiled" if profiled else "all"])
+
+
+class phases:
+    """Consecutive spans over the phases of one function body:
+    ``phase(name)`` closes the open span and opens the next,
+    ``phase(None)`` closes the last.  A sequence that an exception left
+    open on the thread is closed by the next one made there."""
+
+    __slots__ = ("_open",)
+
+    def __init__(self):
+        left = getattr(_tls, "sequence", None)
+        if left is not None and left._open is not None:
+            # take only its span off the stack: spans opened since stay open
+            _open_spans().remove(left._open)
+            left(None)
+        self._open = None
+
+    def __call__(self, name: str | None) -> None:
+        if self._open is not None:
+            self._open.__exit__(None, None, None)
+            self._open = None
+            _tls.sequence = None
+        if name is not None:
+            self._open = _Span(name, None).__enter__()
+            _tls.sequence = self
 
 
 @dataclasses.dataclass(frozen=True)
@@ -122,6 +289,9 @@ class TelemetryRecorder:
         self._phases: dict[str, list] = {}
         # phase -> seconds since last take_dispatch() (per-dispatch rows)
         self._window: dict[str, float] = {}
+        # span -> [n, total_s, self_s]; counter -> sum (see count())
+        self._spans: dict[str, list] = {}
+        self._counts: dict[str, int] = {}
         self._buffer: list[str] = []
         self._fh = None
         self._finalizer = None
@@ -222,30 +392,41 @@ class TelemetryRecorder:
         self.__init__(flush_every=state.get("flush_every", 256))
 
     # ---------------------------------------------------- span timing
-    @contextlib.contextmanager
-    def span(self, phase: str):
-        """Time a host-side dispatch phase with ``perf_counter``."""
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            self.note(phase, time.perf_counter() - t0)
+    def span(self, phase: str) -> _Span:
+        """Time a host-side phase with ``perf_counter``: noted under
+        ``phase`` as :meth:`note` does, its self time in
+        :meth:`self_times`, and a ``record_function`` range while a
+        profiler records (the module-level :func:`span`, bound to this
+        recorder)."""
+        return _Span(phase, self)
 
     def note(self, phase: str, seconds: float) -> None:
         """Record an externally measured duration under ``phase``."""
         with self._lock:
-            rec = self._phases.get(phase)
-            if rec is None:
-                rec = self._phases[phase] = [0, 0.0, 0.0, []]
-            rec[0] += 1
-            rec[1] += seconds
-            if seconds > rec[2]:
-                rec[2] = seconds
-            ring = rec[3]
-            ring.append(seconds)
-            if len(ring) > _RING:
-                del ring[:_TRIM]
-            self._window[phase] = self._window.get(phase, 0.0) + seconds
+            self._note_locked(phase, seconds)
+
+    def _note_span(self, phase: str, seconds: float, self_s: float) -> None:
+        with self._lock:
+            self._note_locked(phase, seconds)
+            _add_span(self._spans, phase, seconds, self_s)
+
+    def _count(self, name: str, n: int) -> None:
+        with self._lock:
+            self._counts[name] = self._counts.get(name, 0) + n
+
+    def _note_locked(self, phase: str, seconds: float) -> None:
+        rec = self._phases.get(phase)
+        if rec is None:
+            rec = self._phases[phase] = [0, 0.0, 0.0, []]
+        rec[0] += 1
+        rec[1] += seconds
+        if seconds > rec[2]:
+            rec[2] = seconds
+        ring = rec[3]
+        ring.append(seconds)
+        if len(ring) > _RING:
+            del ring[:_TRIM]
+        self._window[phase] = self._window.get(phase, 0.0) + seconds
 
     def take_dispatch(self) -> dict[str, float]:
         """Milliseconds per phase since the previous call (and reset).
@@ -280,6 +461,21 @@ class TelemetryRecorder:
                 "total_ms": round(total * 1e3, 4),
             }
         return out
+
+    def self_times(self) -> dict[str, tuple[int, float, float]]:
+        """Per span name, ``(n, total_s, self_s)`` over the recorder's
+        lifetime: self seconds leave out the time of the spans nested in
+        it on its thread, so the self times of nested spans add up to
+        the outermost's total.  Durations given to :meth:`note` are not
+        spans and are not here."""
+        with self._lock:
+            return {k: (v[0], v[1], v[2]) for k, v in self._spans.items()}
+
+    def counts(self) -> dict[str, int]:
+        """Counters (:func:`count`) made while this recorder's span was
+        the innermost open one on the thread."""
+        with self._lock:
+            return dict(self._counts)
 
     # ------------------------------------------------------- emission
     def emit(self, row: dict) -> None:

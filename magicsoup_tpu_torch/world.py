@@ -23,6 +23,12 @@ in :class:`Chemistry`.
   mutations, drawn from ``random.Random(seed)`` and
   ``np.random.default_rng(seed)`` in the JAX package's order, so a port
   world and a JAX world from one seed take the same decisions.
+- **spans**: each call that a step makes opens one span of the world's
+  recorder (``ms:spawn``, ``ms:activity``, ``ms:fetch``, ``ms:kill``,
+  ``ms:divide``, ``ms:recombinate`` over ``ms:neighbors``, ``ms:mutate``,
+  the engine's ``ms:lengths``, ``ms:translate``, ``ms:assemble`` and
+  ``ms:physics``): ``telemetry.phase_stats()``/``self_times()`` on the
+  host, ``record_function`` ranges of those names under a profiler.
 - **persistence**: a pickle holds host numpy and the device's name, so a
   world saved on the card loads anywhere (``from_file(device=...)``);
   ``save_state`` writes the JAX package's file set byte for byte.
@@ -52,12 +58,14 @@ import numpy as np
 import torch
 
 from magicsoup_tpu_torch import genomes as _genomes
+from magicsoup_tpu_torch import telemetry as _telemetry
 from magicsoup_tpu_torch.analysis import runtime as _runtime
 from magicsoup_tpu_torch.containers import Cell, Chemistry
 from magicsoup_tpu_torch.genetics import Genetics, PhenotypeCache
 from magicsoup_tpu_torch.kinetics import Kinetics
 from magicsoup_tpu_torch.native import engine as _engine
 from magicsoup_tpu_torch.ops import backends as _backends
+from magicsoup_tpu_torch.ops import cuda_integrate as _cuda_integrate
 from magicsoup_tpu_torch.ops import diffusion as _diff
 from magicsoup_tpu_torch.ops.detmath import flush_denormal
 from magicsoup_tpu_torch.ops.integrate import CellParams, default_deterministic
@@ -81,6 +89,20 @@ from magicsoup_tpu_torch.util import (
 )
 
 _MIN_CAPACITY = 64
+
+
+def _spanned(name: str):
+    """Run the method inside one span ``name`` of the world's recorder."""
+
+    def wrap(method):
+        @functools.wraps(method)
+        def spanned(self, *args, **kwargs):
+            with self.telemetry.span(name):
+                return method(self, *args, **kwargs)
+
+        return spanned
+
+    return wrap
 
 
 # --------------------------------------------------------------------- #
@@ -455,6 +477,7 @@ class World:
             host, done = col.clone(), None
         self._col_prefetch = (self._block("_cell_molecules"), mol_idx, host, done)
 
+    @_spanned("ms:fetch")
     def cell_molecule_column(self, mol_idx: int) -> np.ndarray:
         """(n_cells,) float32 host copy of ONE molecule's intracellular
         concentrations (n_mols times less traffic than ``cell_molecules``)."""
@@ -609,6 +632,7 @@ class World:
         pairs = self._neighbor_pairs(cell_idxs, nghbr_idxs)
         return list(zip(pairs[:, 0].tolist(), pairs[:, 1].tolist()))
 
+    @_spanned("ms:neighbors")
     def _neighbor_pairs(
         self,
         cell_idxs: list[int] | None,
@@ -667,6 +691,7 @@ class World:
         chosen = self._nprng.choice(len(free), size=n_cells, replace=False)
         return free[chosen].astype(np.int32)
 
+    @_spanned("ms:spawn")
     def spawn_cells(self, genomes: list[str]) -> list[int]:
         """
         Create new cells from genome strings and place them on random free
@@ -718,6 +743,7 @@ class World:
             self._update_cell_params(genomes=genomes, idxs=new_idxs)
         return new_idxs
 
+    @_spanned("ms:spawn")
     def add_cells(self, cells: list[Cell]) -> list[int]:
         """
         Place :class:`Cell` objects on random free pixels, keeping their
@@ -838,6 +864,7 @@ class World:
         placed.sort(key=lambda t: t[0])
         return placed
 
+    @_spanned("ms:divide")
     def divide_cells(self, cell_idxs: list[int]) -> list[tuple[int, int]]:
         """
         Divide cells that have at least one free Moore-neighborhood pixel;
@@ -905,6 +932,7 @@ class World:
         genomes, idxs = map(list, zip(*genome_idx_pairs))
         self._update_cell_params(genomes=genomes, idxs=idxs)
 
+    @_spanned("ms:kill")
     def kill_cells(self, cell_idxs: list[int] | None = None):
         """
         Remove cells; their molecule contents spill onto their pixel.
@@ -1029,24 +1057,31 @@ class World:
             q,
         )
 
+    @_spanned("ms:activity")
     def enzymatic_activity(self, prefetch_column: int | None = None):
         """Catalyze reactions and transport for one time step; updates
         ``molecule_map`` and ``cell_molecules``.  With ``prefetch_column``,
         that molecule's column starts its device->host copy right away
-        (a later :meth:`cell_molecule_column` picks it up)."""
+        (a later :meth:`cell_molecule_column` picks it up).  Counts the
+        integrator's calls, its kernel launches, and the rows and
+        protein slots it was handed (``integrator.*``)."""
         if self.n_cells == 0:
             return
         has_col = prefetch_column is not None
+        launches = _cuda_integrate.launches
         if self._mesh is not None:
+            q = self._capacity // self._mesh.size
             self._mesh_activity()
             _runtime.note_program_shape(self._activity_variant_key(None, has_col))
-            if has_col:
-                self.prefetch_cell_molecule_column(prefetch_column)
-            return
-        q = quantize_rows(self.n_cells, self._capacity)
-        with self._ftz():
-            self._molecule_map, self._cell_molecules = self._activity_at(q)
-        _runtime.note_program_shape(self._activity_variant_key(q, has_col))
+        else:
+            q = quantize_rows(self.n_cells, self._capacity)
+            with self._ftz():
+                self._molecule_map, self._cell_molecules = self._activity_at(q)
+            _runtime.note_program_shape(self._activity_variant_key(q, has_col))
+        _telemetry.count("integrator.calls")
+        _telemetry.count("integrator.launches", _cuda_integrate.launches - launches)
+        _telemetry.count("integrator.rows", q)
+        _telemetry.count("integrator.p", self.kinetics.params.Vmax.shape[1])
         if has_col:
             self.prefetch_cell_molecule_column(prefetch_column)
 
@@ -1136,9 +1171,13 @@ class World:
             )
         self._set_blocks(mm, cm)
 
+    @_spanned("ms:physics")
     def diffuse_molecules(self):
         """Let molecules diffuse over the map and permeate membranes for
         one time step."""
+        self._diffuse_molecules()
+
+    def _diffuse_molecules(self):
         if self._mesh is not None:
             with self._ftz():
                 mm, cm = _tiled.sharded_diffuse_permeate(
@@ -1169,8 +1208,12 @@ class World:
                 self.deterministic,
             )
 
+    @_spanned("ms:physics")
     def degrade_molecules(self):
         """Degrade molecules everywhere by one time step"""
+        self._degrade_molecules()
+
+    def _degrade_molecules(self):
         with self._ftz():
             # elementwise: each rank's blocks under a mesh
             mm, cm = _diff.degrade(
@@ -1180,10 +1223,11 @@ class World:
             )
         self._set_blocks(mm, cm)
 
+    @_spanned("ms:physics")
     def degrade_and_diffuse_molecules(self):
         """:meth:`degrade_molecules` followed by :meth:`diffuse_molecules`."""
-        self.degrade_molecules()
-        self.diffuse_molecules()
+        self._degrade_molecules()
+        self._diffuse_molecules()
 
     def step_many(self, n_steps: int):
         """Run ``n_steps`` chemistry steps — each :meth:`enzymatic_activity`
@@ -1208,6 +1252,7 @@ class World:
     # evolution                                                          #
     # ------------------------------------------------------------------ #
 
+    @_spanned("ms:mutate")
     def mutate_cells(
         self,
         cell_idxs: list[int] | None = None,
@@ -1254,6 +1299,7 @@ class World:
                 genome_idx_pairs=[(d, cell_idxs[i]) for d, i in mutated]
             )
 
+    @_spanned("ms:recombinate")
     def recombinate_cells(self, cell_idxs: list[int] | None = None, p: float = 1e-7):
         """Recombinate genomes of neighboring cells, then update changed
         cells."""
@@ -1298,7 +1344,9 @@ class World:
         if len(idxs) == 0:
             return
         idxs_arr, genomes = _last_wins(idxs, genomes)
-        self._apply_phenotype_entries(idxs_arr, self.phenotypes.lookup(genomes))
+        with self.telemetry.span("ms:translate"):
+            entries = self.phenotypes.lookup(genomes)
+        self._apply_phenotype_entries(idxs_arr, entries)
 
     # graftlint: hot
     def _update_cell_params_tokens(self, idxs):
@@ -1309,7 +1357,8 @@ class World:
         if len(idxs_arr) == 0:
             return
         tokens, lengths = self._genome_store.host_arrays()
-        entries = self.phenotypes.lookup_tokens(tokens, lengths, idxs_arr.tolist())
+        with self.telemetry.span("ms:translate"):
+            entries = self.phenotypes.lookup_tokens(tokens, lengths, idxs_arr.tolist())
         self._apply_phenotype_entries(idxs_arr, entries)
 
     # graftlint: hot
@@ -1320,9 +1369,12 @@ class World:
         idxs_arr = np.asarray(idxs, dtype=np.int32)
         if len(idxs_arr) == 0:
             return
-        self._apply_phenotype_entries(idxs_arr, self.phenotypes.lookup_tokens(rows, lens))
+        with self.telemetry.span("ms:translate"):
+            entries = self.phenotypes.lookup_tokens(rows, lens)
+        self._apply_phenotype_entries(idxs_arr, entries)
 
     # graftlint: hot
+    @_spanned("ms:assemble")
     def _apply_phenotype_entries(self, idxs_arr: np.ndarray, entries) -> None:
         """The shared tail of the parameter updates: unset empty
         proteomes, grow the token limits for the whole dispatch, pack in
