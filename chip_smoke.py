@@ -3,8 +3,9 @@ Smoke run of the PyTorch/CUDA port on one CUDA card:
 
 1. environment: torch, CUDA, and the card's name and power limit;
 2. build: the integrator kernel (``magicsoup_tpu_torch/csrc/integrate.cu``),
-   its ladder (``csrc/bisect.cu``) and the threefry kernel
-   (``csrc/threefry.cu``) with nvcc and the genome engine with g++, from
+   its ladder (``csrc/bisect.cu``), the threefry kernel
+   (``csrc/threefry.cu``) and the assembly kernel (``csrc/assemble.cu``)
+   with nvcc and the genome engine with g++, from
    the checkout's sources, all started together;
 3. K1, the kernel's solo grid, on seeded inputs: against its plain PyTorch
    version at the workload's shapes (q = 10240 live rows, s = 28 signals,
@@ -335,10 +336,30 @@ Smoke run of the PyTorch/CUDA port on one CUDA card:
     JAX script's keys and its launches be one per step.  A ``{"drivers":
     ...}`` line with the phase's wall seconds; its launches join the K1,
     K2, grouped and threefry entries.
+28. the assembly kernel (``ops/cuda_params.py``, ``csrc/assemble.cu``) at
+    the classic path's shapes: 5, 400 and 10,000 rows of random tokens at
+    rung (16, 4) into protein capacities 64 and 128 of a 10,240-row state,
+    Wood-Ljungdahl's tables (s 28).  At each: the nine tensors bit-equal
+    to the plain ``ops/params.py::assemble_rows`` on the card (whole
+    state), one launch; the kernel's median time (CUDA events after a
+    spin) and host time per launch, the plain version's time, its wall
+    time per call and its device kernels per call, and the bound: the
+    bytes written (16 + 12 s per protein slot of every row) and read (the
+    tokens, the rows, and the table rows that each domain type reaches,
+    row 0 of every table once) at 3.35 TB/s; the wall time of a whole
+    call from the host batch (the pinned upload and the launch).  An
+    ``{"assembly": ...}`` line; the kernel's entry joins the kernels
+    line with its launches on every World path above: phases 2-5 and 15
+    (the work, both backends, each launch and row matched against the
+    ``assembly.*`` counters), 21 (each differential path), 22 (the
+    classic world with a recorder), 25 (each rank of the headline mesh
+    and of the det meshes), 26 (the guarded windows, and a guarded
+    ``scatter_dense`` of 400 rows: one launch, no synchronization, no
+    compile) and 27 (each driver).
 
 Phases 10, 11 and 14 run right after the build, 15 after 5, 19 and 20
 after 5 and after 15, 16 and 17 after 7, 12, 18, 13 and 21 after 9, 22,
-23, 24 and 25 after them, then 26 and 27.  Each phase's wall seconds are
+23, 24 and 25 after them, then 26, 27 and 28.  Each phase's wall seconds are
 printed when it ends, and all of them on one ``{"phase_seconds": ...}``
 line.
 
@@ -364,7 +385,7 @@ K2 lines, the digests, sweep, ladder, microbenchmark and det lines, a
 ``{"fused_fleet": ...}`` line, a ``{"serve": ...}`` line, a
 ``{"meshes": ...}`` line, an ``{"analysis": ...}`` line, a ``{"drivers":
 ...}`` line, the phases' seconds, the whole run's seconds, a ``{"kernels": [...]}`` line (K1, K2, the grouped launch, K3,
-threefry), the card's name and power limit, and as its
+threefry, the assembly kernel), the card's name and power limit, and as its
 last line ``{"ok": true, "device": {...}}``.  Any failure raises, and the
 run exits non-zero without that last line.  It needs one card.
 
@@ -475,6 +496,12 @@ GENOME_OPS = dict(sizes=[1000, 8000, 40000], s=1000, r=5, p=1e-4, pb=1e-5, seed=
 #: (a git-ignored directory of the checkout, removed afterwards)
 PERSIST_STEPS = 10
 PERSIST_DIR = ROOT / "build" / "chip_smoke_persistence"
+#: phase 28: rows per call, protein capacities, the rung and the state's
+#: rows of the assembly kernel's measurement
+ASSEMBLY_ROWS = (5, 400, 10_000)
+ASSEMBLY_P = (64, 128)
+ASSEMBLY_RUNG = (16, 4)
+ASSEMBLY_CAP = 10_240
 #: the API phase: cells taken out with get_cell/kill_cells and added back
 API_CELLS = 100
 #: the differential harness: the golden files of the det paths and of
@@ -514,10 +541,10 @@ def _environment():
 
 def _build():
     from magicsoup_tpu_torch.native import engine
-    from magicsoup_tpu_torch.ops import cuda_bisect, cuda_integrate, cuda_prng
+    from magicsoup_tpu_torch.ops import cuda_bisect, cuda_integrate, cuda_params, cuda_prng
 
     t0 = time.perf_counter()
-    builds = [cuda_integrate.build, cuda_bisect.build, cuda_prng.build]
+    builds = [cuda_integrate.build, cuda_bisect.build, cuda_prng.build, cuda_params.build]
     builds += [PARENT.build, PARENT_LADDER.build] if PARENT else []
     with ThreadPoolExecutor(max_workers=len(builds) + 1) as pool:
         kernels = [pool.submit(b) for b in builds]
@@ -831,12 +858,15 @@ def _workload(torch, seed: int = SEED, genome_backend: str = "string",
 def _run_steps(torch, world) -> dict:
     """The main path: warm-up, timed and phase-timed workload steps, with
     the kernels' launch counts set to 0 just before and read right after;
-    the token store's host fetches and decodes are counted too."""
+    the token store's host fetches and decodes are counted too, and the
+    assembly kernel's launches and rows against the ``assembly.*``
+    counters."""
     import numpy as np
 
+    from magicsoup_tpu_torch import telemetry
     from magicsoup_tpu_torch.analysis import runtime
     from magicsoup_tpu_torch.ops import cuda_integrate as ci
-    from magicsoup_tpu_torch.ops import cuda_prng
+    from magicsoup_tpu_torch.ops import cuda_params, cuda_prng
     from magicsoup_tpu_torch.workload import sim_step
 
     atp = world.chemistry.molname_2_idx["ATP"]
@@ -861,8 +891,10 @@ def _run_steps(torch, world) -> dict:
         )
 
     genome0 = runtime.genome_stats()
+    counters0 = telemetry.counter_totals()
     ci.launches = 0
     cuda_prng.launches = 0
+    cuda_params.launches = 0
     for _ in range(WARMUP_STEPS):
         step(sync=False)
     torch.cuda.synchronize()
@@ -882,11 +914,19 @@ def _run_steps(torch, world) -> dict:
         step(timeit=_Timer)
     launches = ci.launches
     threefry_launches = cuda_prng.launches
+    assembly_launches = cuda_params.launches
     genome1 = runtime.genome_stats()
+    counters1 = telemetry.counter_totals()
+    assembly = {k: counters1.get(f"assembly.{k}", 0) - counters0.get(f"assembly.{k}", 0)
+                for k in ("rows", "kernel_rows", "launches")}
 
     n_steps = WARMUP_STEPS + TIMED_BLOCKS * BLOCK_STEPS + PHASE_STEPS
     if launches != n_steps:
         raise AssertionError(f"{launches} kernel launches in {n_steps} steps")
+    if not (0 < assembly_launches == assembly["launches"]
+            and 0 < assembly["rows"] == assembly["kernel_rows"]):
+        raise AssertionError(f"{assembly_launches} assembly launches in {n_steps} steps,"
+                             f" counters {assembly}")
     token = world.genome_store is not None
     if (threefry_launches > 0) != token:
         raise AssertionError(f"{threefry_launches} threefry launches in a"
@@ -916,6 +956,9 @@ def _run_steps(torch, world) -> dict:
         "genome_backend": world.genome_backend,
         "threefry_launches": threefry_launches,
         "threefry_launches_per_step": threefry_launches / n_steps,
+        "assembly_launches": assembly_launches,
+        "assembly_launches_per_step": assembly_launches / n_steps,
+        "assembly_rows_per_step": assembly["rows"] / n_steps,
         "store_fetches_per_step": (genome1["genome_fetches"] - genome0["genome_fetches"]) / n_steps,
         "store_fetch_bytes_per_step": (genome1["genome_fetch_bytes"]
                                        - genome0["genome_fetch_bytes"]) / n_steps,
@@ -2046,7 +2089,7 @@ def _differential(torch) -> dict:
     files and against the CPU in the same call."""
     from magicsoup_tpu_torch.check import differential
     from magicsoup_tpu_torch.ops import cuda_integrate as ci
-    from magicsoup_tpu_torch.ops import cuda_prng
+    from magicsoup_tpu_torch.ops import cuda_params, cuda_prng
 
     paths = (differential.PATHS + differential.FLEET_PATHS + differential.TOKEN_PATHS
              + differential.FUSED_PATHS)
@@ -2057,7 +2100,7 @@ def _differential(torch) -> dict:
         kw = dict(seed=rec["seed"], map_size=rec["map_size"], n_cells=rec["n_cells"],
                   digest_fn=_both_digests)
         for path in paths:
-            ci.launches = ci.grouped_launches = cuda_prng.launches = 0
+            ci.launches = ci.grouped_launches = cuda_prng.launches = cuda_params.launches = 0
             # a mesh path's ranks are child processes: their digests come
             # back by name, without the arrays of a divergence report
             mesh_kw = dict(kw, digest_fn=differential.both_digests)
@@ -2065,9 +2108,12 @@ def _differential(torch) -> dict:
             t0 = time.perf_counter()
             card = differential.run_path(path, device="cuda", **pkw)
             out["seconds"]["cuda"] += time.perf_counter() - t0
+            # a mesh path's ranks count in their own processes (phase 25)
             out["launches"][f"{path}/seed{rec['seed']}"] = {
                 "k1_k2": ci.launches, "grouped": ci.grouped_launches,
-                "threefry": cuda_prng.launches}
+                "threefry": cuda_prng.launches, "assembly": cuda_params.launches}
+            if path in ("classic", "token_classic") and cuda_params.launches == 0:
+                raise AssertionError(f"differential {path}: no assembly launch on the card")
             t0 = time.perf_counter()
             cpu = differential.run_path(path, device="cpu", **pkw)
             if path in differential.MESH_PATHS:
@@ -2174,6 +2220,157 @@ def _threefry(torch) -> dict:
           f" {got['bound_ms']:.4f} ms by {got['bound_by']}), {len(checked)} draws bit-equal,"
           f" one launch each", flush=True)
     return got
+
+
+def _assembly_tokens(rng, b: int, p_r: int, d_r: int, n1: int, n2: int):
+    """A random token batch ``(b, p_r, d_r, 5)``: each cell 1..p_r
+    proteins of 1..d_r domains of random type, zeros beyond them."""
+    import numpy as np
+
+    n_p = rng.integers(1, p_r + 1, b)
+    n_d = rng.integers(1, d_r + 1, (b, p_r))
+    live = (np.arange(p_r)[None, :, None] < n_p[:, None, None]) & (
+        np.arange(d_r)[None, None, :] < n_d[:, :, None])
+    dense = np.zeros((b, p_r, d_r, 5), dtype=np.int16)
+    dense[..., 0] = rng.integers(1, 4, live.shape) * live
+    dense[..., 1:4] = rng.integers(1, n1, live.shape + (3,)) * live[..., None]
+    dense[..., 4] = rng.integers(1, n2, live.shape) * live
+    return dense
+
+
+def _assembly_read_bytes(dense, tables) -> int:
+    """Bytes the batch needs read once: its tokens, its rows (int64), and
+    each table row that a domain reaches (Km and sign by every domain,
+    Vmax by a catalytic or transporter domain, hill and effector by a
+    regulatory one, reaction by a catalytic one, transport by a
+    transporter), with row 0 of every table once, where the zeroed
+    indices and the fill slots go."""
+    import numpy as np
+
+    t, i0, i1, i2, i3 = (dense[..., k] for k in range(5))
+    reached = {
+        "km_weights": i1, "signs": i2,
+        "vmax_weights": i0[(t == 1) | (t == 2)], "hills": i0[t == 3],
+        "reactions": i3[t == 1], "transports": i3[t == 2], "effectors": i3[t == 3],
+    }
+    n = dense.nbytes + 8 * dense.shape[0]
+    for name, idx in reached.items():
+        table = getattr(tables, name)
+        rows = len(np.union1d(idx, [0]))
+        n += rows * table[0].numel() * table.element_size()
+    return n + tables.mol_energies.numel() * tables.mol_energies.element_size()
+
+
+def _assembly(torch) -> dict:
+    """Phase 28: the assembly kernel against the plain ``assemble_rows``
+    on the card at the classic path's shapes."""
+    import numpy as np
+
+    from magicsoup_tpu_torch.examples.wood_ljungdahl import CHEMISTRY
+    from magicsoup_tpu_torch.kinetics import Kinetics
+    from magicsoup_tpu_torch.ops import cuda_params
+    from magicsoup_tpu_torch.ops import params as P
+    from magicsoup_tpu_torch.ops.integrate import CellParams
+    from magicsoup_tpu_torch.performance import HBM_BYTES_PER_S, cuda_median_ms
+
+    kin = Kinetics(chemistry=CHEMISTRY, seed=SEED, device="cuda")
+    tables, temp = kin.tables, kin._abs_temp_t
+    s = tables.mol_energies.shape[0]
+    n1, n2 = tables.km_weights.shape[0], tables.reactions.shape[0]
+    p_r, d_r = ASSEMBLY_RUNG
+    rng = np.random.default_rng(SEED)
+
+    def bits(t):
+        return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+    def wall_ms(fn, reps):
+        fn()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return sorted(times)[len(times) // 2]
+
+    def device_ops(fn):
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        return sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
+
+    shapes = []
+    for P_ in ASSEMBLY_P:
+        for b in ASSEMBLY_ROWS:
+            dense_np = _assembly_tokens(rng, b, p_r, d_r, n1, n2)
+            rows_np = rng.permutation(ASSEMBLY_CAP)[:b]
+            dense, rows = torch.from_numpy(dense_np).cuda(), torch.from_numpy(rows_np).cuda()
+            got = kin._alloc(ASSEMBLY_CAP, P_)
+            want = CellParams(*(t.clone() for t in got))
+            before = cuda_params.launches
+            cuda_params.assemble_rows(got, dense_np, tables, temp, rows_np)
+            launched = cuda_params.launches - before
+            P.assemble_rows(want, dense, tables, temp, rows)
+            torch.cuda.synchronize()
+            equal = all(torch.equal(bits(a), bits(w)) for a, w in zip(got, want))
+            if launched != 1 or not equal:
+                raise AssertionError(f"assembly at b {b}, P {P_}: {launched} launches,"
+                                     f" bit-equal {equal}")
+            kernel = lambda: cuda_params.launch(got, dense, tables, temp, rows)  # noqa: E731
+            call = lambda: cuda_params.assemble_rows(got, dense_np, tables, temp, rows_np)  # noqa: E731
+            plain = lambda: P.assemble_rows(want, dense, tables, temp, rows)  # noqa: E731
+            written = b * P_ * (16 + 12 * s)
+            read = _assembly_read_bytes(dense_np, tables)
+            ms = cuda_median_ms(kernel, KERNEL_REPS)
+            bound_ms = (written + read) / HBM_BYTES_PER_S * 1e3
+            row = {
+                "rows": b, "P": P_, "rung": [p_r, d_r], "s": s, "bit_equal": True,
+                "launches": launched, "ms": ms, "bound_ms": bound_ms, "bound_by": "bytes",
+                "bound_share_pct": 100.0 * bound_ms / ms,
+                "written_bytes": written, "read_bytes": read,
+                "host_us_per_launch": _host_us(torch, kernel),
+                "wall_ms": wall_ms(call, PLAIN_REPS),
+                "plain_ms": cuda_median_ms(plain, PLAIN_REPS),
+                "plain_wall_ms": wall_ms(plain, PLAIN_REPS),
+                "plain_device_ops": device_ops(plain),
+                "device_ops": device_ops(kernel),
+            }
+            shapes.append(row)
+            print(f"assembly b {b} P {P_}: {ms:.4f} ms (bound {bound_ms:.4f}, plain"
+                  f" {row['plain_ms']:.3f} ms device / {row['plain_wall_ms']:.3f} ms wall,"
+                  f" {row['plain_device_ops']} device ops), host {row['host_us_per_launch']:.1f}"
+                  f" us a launch, {row['wall_ms']:.3f} ms a call, bit-equal", flush=True)
+            del got, want
+    return {"shapes": shapes}
+
+
+def _assembly_entry(assembly: dict, per_path: dict) -> dict:
+    """The assembly kernel's entry of the kernels line: times from phase
+    28 at 400 rows into P 64, launches from the classic work (phase 5),
+    per path beside."""
+    main = next(r for r in assembly["shapes"] if r["rows"] == 400 and r["P"] == ASSEMBLY_P[0])
+    return {
+        "name": "assemble_rows",
+        "route": "cuda",
+        "source": "magicsoup_tpu_torch/csrc/assemble.cu",
+        # no Pallas kernel: the JAX package's XLA program,
+        # magicsoup_tpu/ops/params.py
+        "replaces": None,
+        "shape": {k: main[k] for k in ("rows", "P", "rung", "s")},
+        "launches": per_path["classic"],
+        "launches_per_path": per_path,
+        "launches_per_call": main["launches"],
+        "max_abs_err": 0,
+        "ms": main["ms"],
+        "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,
+        "ok": True,
+    }
 
 
 def _threefry_entry(threefry: dict, per_path: dict) -> dict:
@@ -2321,7 +2518,7 @@ def _recorder_windows(torch, tmp: Path) -> tuple[dict, object, object]:
     from magicsoup_tpu_torch.analysis import runtime
     from magicsoup_tpu_torch.examples.wood_ljungdahl import CHEMISTRY
     from magicsoup_tpu_torch.ops import cuda_integrate as ci
-    from magicsoup_tpu_torch.ops import cuda_prng
+    from magicsoup_tpu_torch.ops import cuda_params, cuda_prng
     from magicsoup_tpu_torch.workload import sim_step
 
     path = tmp / "run.jsonl"
@@ -2329,13 +2526,14 @@ def _recorder_windows(torch, tmp: Path) -> tuple[dict, object, object]:
     world.telemetry.attach(path)
     atp = CHEMISTRY.molname_2_idx["ATP"]
     rng = random.Random(SEED)
-    ci.launches = 0
+    ci.launches = cuda_params.launches = 0
     for _ in range(5):
         sim_step(world, rng, n_cells=N_CELLS, genome_size=GENOME_SIZE, atp_idx=atp)
     torch.cuda.synchronize()
-    classic_launches = ci.launches
-    if classic_launches != 5:
-        raise AssertionError(f"classic world with a recorder: {classic_launches} K1 launches in 5 steps")
+    classic_launches, classic_assembly = ci.launches, cuda_params.launches
+    if classic_launches != 5 or classic_assembly == 0:
+        raise AssertionError(f"classic world with a recorder: {classic_launches} K1 launches"
+                             f" and {classic_assembly} assembly launches in 5 steps")
     st = mt.PipelinedStepper(world, megastep=1, **STEPPER_KW)
     if st.telemetry is not world.telemetry:
         raise AssertionError("the stepper does not share the world's recorder")
@@ -2406,7 +2604,8 @@ def _recorder_windows(torch, tmp: Path) -> tuple[dict, object, object]:
     on = [w["steps_per_s"] for w in windows if w["attached"]]
     off = [w["steps_per_s"] for w in windows if not w["attached"]]
     return {
-        "classic_with_recorder": {"steps": 5, "k1_launches": classic_launches},
+        "classic_with_recorder": {"steps": 5, "k1_launches": classic_launches,
+                                  "assembly_launches": classic_assembly},
         "windows": windows,
         "steps_per_s_attached": on,
         "steps_per_s_detached": off,
@@ -2842,6 +3041,7 @@ def _guard_phase(torch) -> tuple[dict, dict]:
         shutil.rmtree(GUARD_DIR, ignore_errors=True)
     launches = {
         "k1_classic_with_recorder": recorder["classic_with_recorder"]["k1_launches"],
+        "assembly_classic_with_recorder": recorder["classic_with_recorder"]["assembly_launches"],
         "k2_recorder_windows": [w["launches"] for w in recorder["windows"]],
         "k2_trace_window": recorder["trace_window"]["k2_launches"],
         "k2_resumed_fast_10k": resume["fast_10k"]["launches_per_dispatch"],
@@ -4200,16 +4400,17 @@ QUIET_KW = dict(STEPPER_KW, kill_below=-1.0, divide_above=1e30, divide_cost=0.0,
 
 def _zero_launches():
     from magicsoup_tpu_torch.ops import cuda_integrate as ci
-    from magicsoup_tpu_torch.ops import cuda_prng
+    from magicsoup_tpu_torch.ops import cuda_params, cuda_prng
 
-    ci.launches = ci.grouped_launches = cuda_prng.launches = 0
+    ci.launches = ci.grouped_launches = cuda_prng.launches = cuda_params.launches = 0
 
 
 def _launch_counts() -> dict:
     from magicsoup_tpu_torch.ops import cuda_integrate as ci
-    from magicsoup_tpu_torch.ops import cuda_prng
+    from magicsoup_tpu_torch.ops import cuda_params, cuda_prng
 
-    return {"k1_k2": ci.launches, "grouped": ci.grouped_launches, "threefry": cuda_prng.launches}
+    return {"k1_k2": ci.launches, "grouped": ci.grouped_launches, "threefry": cuda_prng.launches,
+            "assembly": cuda_params.launches}
 
 
 def _guarded(torch, label: str, run, want: dict) -> dict:
@@ -4273,6 +4474,27 @@ def _guarded_fleet(torch, worlds, fusion: str, block: int) -> dict:
     for i, w in enumerate(worlds):
         _check_state(w, f"guarded fleet ({fusion}) world {i}")
     return dict(got, worlds=len(worlds), groups=n_groups, fleet_steps=ANALYSIS_FLEET_STEPS)
+
+
+def _guarded_assembly(torch, world) -> dict:
+    """``Kinetics.scatter_dense`` of ``ASSEMBLY_ROWS[1]`` random token rows
+    at rung ``ASSEMBLY_RUNG`` into slots of ``world`` (which is dropped
+    afterwards) under the guard, after one unguarded call: the pinned
+    upload and the kernel's one launch synchronize nowhere and compile
+    nothing."""
+    import numpy as np
+
+    kin = world.kinetics
+    rng = np.random.default_rng(SEED + 28)
+    p_r, d_r = ASSEMBLY_RUNG
+    b = min(ASSEMBLY_ROWS[1], world._capacity)
+    rows = rng.permutation(world._capacity)[:b]
+    dense = _assembly_tokens(rng, b, min(p_r, kin.params.Vmax.shape[1]), d_r,
+                             kin.tables.km_weights.shape[0], kin.tables.reactions.shape[0])
+    kin.scatter_dense(rows, dense)
+    got = _guarded(torch, "guarded assembly", lambda: kin.scatter_dense(rows, dense),
+                   {"assembly": 1, "k1_k2": 0})
+    return dict(got, rows=b, rung=list(dense.shape[1:3]))
 
 
 def _sync_item_control(torch) -> dict:
@@ -4500,6 +4722,7 @@ def _analysis_phase(torch) -> tuple[dict, dict]:
     windows = {"stepper_K1": _guarded_stepper(torch, world, 1),
                "stepper_K4": _guarded_stepper(torch, world, 4)}
     det = _det_steps(torch, world)
+    windows["assembly"] = _guarded_assembly(torch, world)
     del world
     worlds = [_workload(torch, seed=SEED + i)[0] for i in range(FLEET_WORLDS)]
     windows["fleet"] = _guarded_fleet(torch, worlds, "rung", FLEET_WORLDS)
@@ -4516,13 +4739,17 @@ def _analysis_phase(torch) -> tuple[dict, dict]:
     launches = {
         "k1": {"prewarm": warm_up["warm"]["prewarm_launches"],
                "first_activity": {m: warm_up[m]["first_activity_launches"] for m in warm_up}},
-        "k2": {name: w["launches"]["k1_k2"] for name, w in windows.items() if name != "fused_fleet"}
+        "k2": {name: w["launches"]["k1_k2"] for name, w in windows.items()
+               if name not in ("fused_fleet", "assembly")}
               | {"token_stepper_K1": token["launches"]["k1_k2"],
                  "token_stepper_K1_guarded": token["guarded"]["launches"]["k1_k2"]},
         "grouped": windows["fused_fleet"]["launches"]["grouped"],
         "threefry": {name: w["launches"]["threefry"] for name, w in windows.items()}
                     | {"token_stepper_K1": token["launches"]["threefry"],
                        "token_stepper_K1_guarded": token["guarded"]["launches"]["threefry"]},
+        "assembly": {name: w["launches"]["assembly"] for name, w in windows.items()}
+                    | {"token_stepper_K1": token["launches"]["assembly"],
+                       "token_stepper_K1_guarded": token["guarded"]["launches"]["assembly"]},
     }
     return {
         "item_control": control,
@@ -4781,7 +5008,11 @@ def _drivers_phase(torch) -> tuple[dict, dict]:
     runs.update({k: v for k, v in out.items() if k not in ("bench", "bench_in_process",
                                                           "run_simulation", "wall_s")})
     launches = {kind: {name: r["launches"][kind] for name, r in runs.items()}
-                for kind in ("k1_k2", "grouped", "threefry")}
+                for kind in ("k1_k2", "grouped", "threefry", "assembly")}
+    # the classic World loops assemble through the kernel
+    for name in ("bench", "run_simulation_classic"):
+        if launches["assembly"][name] == 0:
+            raise AssertionError(f"driver {name}: no assembly launch on the card")
     return out, launches
 
 
@@ -4933,7 +5164,8 @@ def main() -> None:
     det = _det_on_card(torch)
     print(json.dumps({"det_on_card": det}))
     _lap("13 det on card")
-    print(json.dumps({"differential": _differential(torch)}))
+    differential = _differential(torch)
+    print(json.dumps({"differential": differential}))
     _lap("21 differential")
     guard_phase, guard_launches = _guard_phase(torch)
     print(json.dumps({"guard": guard_phase}))
@@ -4978,6 +5210,10 @@ def main() -> None:
                               if k not in classic_drivers or k == "bench"}
     grouped["drivers_launches"] = {"fleet_sweep_mixed": driver_launches["grouped"]["fleet_sweep_mixed"]}
 
+    assembly = _assembly(torch)
+    print(json.dumps({"assembly": assembly}))
+    _lap("28 assembly")
+
     from magicsoup_tpu_torch.performance import card_line
 
     card = card_line()
@@ -4998,8 +5234,23 @@ def main() -> None:
     }
     print(json.dumps({"phase_seconds": _LAPS}))
     print(json.dumps({"run": {"wall_s": time.perf_counter() - RUN_T0}}))
+    assembly_per_path = {
+        "classic": work["assembly_launches"],
+        "token_classic": token_work["assembly_launches"],
+        "differential": {k: v["assembly"] for k, v in differential["launches"].items()
+                         if "assembly" in v},
+        "guard_classic_with_recorder": guard_launches["assembly_classic_with_recorder"],
+        "mesh_headline_classic_per_rank": [r["classic"]["assembly"] for r in head],
+        "mesh_det_gloo_rank0": {k: v["assembly"] for k, v in meshes["det_gloo"].items()},
+        "mesh_det_nccl": {k: meshes["nccl"][k]["assembly"] for k in meshes["det_gloo"]},
+        "analysis_windows": analysis_launches["assembly"],
+        "drivers": driver_launches["assembly"],
+    }
+    if sum(assembly_per_path["mesh_headline_classic_per_rank"]) == 0:
+        raise AssertionError("meshes (c): no assembly launch in the ranks' classic steps")
     print(json.dumps({"kernels": [kernel, k2, grouped, _k3_entry(ladder),
-                                  _threefry_entry(threefry, per_path)]}))
+                                  _threefry_entry(threefry, per_path),
+                                  _assembly_entry(assembly, assembly_per_path)]}))
     print(card)
     print(json.dumps({
         "ok": True,

@@ -14,7 +14,10 @@ rank holds its slot block of every tensor, through capacity growth too;
 the methods take global slot indices and write the rows the rank owns,
 and :meth:`global_params` all-gathers the whole tensors.  Parameter assembly groups cells by their rung (the pow2
 of their own protein count and domains per protein) and assembles each
-group at that rung, as the JAX package does, writing rows in place.
+group at that rung, as the JAX package does, writing rows in place: on a
+card in one launch of the assembly kernel per group
+(:mod:`magicsoup_tpu_torch.ops.cuda_params`), on the CPU through the plain
+version in :mod:`magicsoup_tpu_torch.ops.params`.
 """
 import math
 import random
@@ -22,10 +25,12 @@ import random
 import numpy as np
 import torch
 
+from magicsoup_tpu_torch import telemetry as _telemetry
 from magicsoup_tpu_torch.constants import ProteinSpecType
 from magicsoup_tpu_torch.containers import Chemistry, Molecule, Protein
 from magicsoup_tpu_torch.native import pack_dense
 from magicsoup_tpu_torch.ops import backends as _backends
+from magicsoup_tpu_torch.ops import cuda_params as _cuda_params
 from magicsoup_tpu_torch.ops.integrate import (
     INT_PARAM_DTYPE,
     CellParams,
@@ -601,8 +606,12 @@ class Kinetics:
 
     # graftlint: hot
     def scatter_dense(self, cell_idxs: np.ndarray, dense: np.ndarray):
-        """Assemble one packed token batch into parameter rows, in chunks
-        that bound the (b, p, d, s) assembly temporaries."""
+        """Assemble one packed token batch into parameter rows.  On a card
+        the batch goes up in one host->device copy and through one launch
+        of the assembly kernel (``ops/cuda_params.py``), with no host
+        synchronization; on the CPU the plain version runs in chunks that
+        bound its (b, p, d, s) temporaries.  Counts ``assembly.rows``, and
+        on a card ``assembly.kernel_rows`` and ``assembly.launches``."""
         cell_idxs = np.asarray(cell_idxs, dtype=np.int64)
         if self.mesh is not None:
             cell_idxs, sel = self._owned(cell_idxs)
@@ -610,9 +619,17 @@ class Kinetics:
         b = len(cell_idxs)
         if b == 0:
             return
-        p_r, d_r = int(dense.shape[1]), int(dense.shape[2])
-        chunk = self._assembly_chunk(p_r, d_r)
         self._param_epoch += 1
+        _telemetry.count("assembly.rows", b)
+        if self.device.type == "cuda":
+            launched = _cuda_params.launches
+            _cuda_params.assemble_rows(
+                self.params, dense, self.tables, self._abs_temp_t, cell_idxs
+            )
+            _telemetry.count("assembly.kernel_rows", b)
+            _telemetry.count("assembly.launches", _cuda_params.launches - launched)
+            return
+        chunk = self._assembly_chunk(int(dense.shape[1]), int(dense.shape[2]))
         for a in range(0, b, chunk):
             assemble_rows(
                 self.params,

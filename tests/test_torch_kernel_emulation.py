@@ -1,7 +1,8 @@
 """
 The CUDA sources of the integrator kernel (``csrc/integrate.cu``), of
-its ladder (``csrc/bisect.cu``) and of the threefry draw
-(``csrc/threefry.cu``), compiled with g++ against a CPU stand-in
+its ladder (``csrc/bisect.cu``), of the threefry draw
+(``csrc/threefry.cu``) and of parameter assembly (``csrc/assemble.cu``),
+compiled with g++ against a CPU stand-in
 for the CUDA runtime (``torch_data/cuda_emu/cuda_runtime.h``: each CTA
 runs as one thread per CUDA thread, with real barriers) and held against
 their plain versions on the CPU.  So the kernels' logic -- the staging of
@@ -17,13 +18,18 @@ grouped launch against its own launch, each ladder rung across the masks
 the launch plan can pick for its groups, rung 11 against the kernel).  The threefry kernel's work is
 integer only, so it is held bit-equal to its plain version
 (``ops/prng.py``): both output modes, several keys, counts that are not
-a multiple of the block, and one element.  On the card chip_smoke.py
-holds the kernels themselves.
+a multiple of the block, and one element.  The assembly kernel repeats
+its plain version's arithmetic operation for operation, so it is held
+bit-equal to ``ops/params.py::assemble_rows`` (the emulated threads flush
+subnormals as the plain version does on the CPU), and a token or a row
+outside the tables traps it.  On the card chip_smoke.py holds the kernels
+themselves.
 """
 import ctypes
 import re
 import shutil
 import subprocess
+import sys
 from pathlib import Path
 
 import numpy as np
@@ -33,7 +39,8 @@ import torch
 from magicsoup_tpu_torch.interop import params_from_numpy
 from magicsoup_tpu_torch.ops import cuda_bisect as cb
 from magicsoup_tpu_torch.ops import cuda_integrate as ci
-from magicsoup_tpu_torch.ops import cuda_prng, prng
+from magicsoup_tpu_torch.ops import cuda_params, cuda_prng, prng
+from magicsoup_tpu_torch.ops import params as plain_params
 from magicsoup_tpu_torch.ops.integrate import CellParams
 from magicsoup_tpu_torch.performance import kernel_bisect as kb
 
@@ -282,3 +289,66 @@ def test_emulated_threefry_refuses_what_it_does_not_take(threefry):
     out = torch.empty(4, dtype=torch.int64)
     assert threefry.ms_threefry(keys.data_ptr(), 1, 4, out.data_ptr(), 2, None) != 0
     assert threefry.ms_threefry(keys.data_ptr(), 1, 2**32, out.data_ptr(), 0, None) != 0
+
+
+@pytest.fixture(scope="module")
+def assemble(tmp_path_factory):
+    if shutil.which("g++") is None:
+        pytest.skip("needs g++ to build the kernel's source for the CPU")
+    lib = _build(cuda_params.SRC, tmp_path_factory.mktemp("cuda_emu_assemble"))
+    lib.ms_assemble_rows.argtypes = [ctypes.c_void_p] * 4
+    lib.ms_assemble_rows.restype = ctypes.c_int
+    lib.emu_set_flush_denormal(1)
+    return lib
+
+
+@pytest.mark.parametrize("p_r,d_r,P,s", [(16, 4, 16, 28), (16, 4, 32, 28), (8, 8, 8, 82), (7, 3, 12, 40)])
+def test_emulated_assembly_is_bit_equal_to_its_plain_version(assemble, p_r, d_r, P, s):
+    from test_torch_assemble import _abs_temp, _assert_bit_equal, _dense, _state, _tables
+
+    tables = _tables(s, seed=s + P)
+    dense = torch.from_numpy(_dense(5, p_r, d_r, seed=p_r * d_r))
+    C = dense.shape[0] + 6
+    rows = torch.randperm(C, generator=torch.Generator().manual_seed(P))[: dense.shape[0]]
+    got, want = _state(C, P, s, seed=2), _state(C, P, s, seed=2)
+    temp = _abs_temp()  # alive while the kernel reads it
+    cuda_params._check(got, dense, tables, temp, rows)
+    assert assemble.ms_assemble_rows(*cuda_params.launch_args(got, dense, tables, temp, rows),
+                                     None) == 0
+    plain_params.assemble_rows(want, dense, tables, temp, rows)
+    _assert_bit_equal(got, want)
+
+
+def test_emulated_assembly_refuses_a_rung_wider_than_the_state(assemble):
+    from test_torch_assemble import _abs_temp, _dense, _state, _tables
+
+    tables, dense = _tables(28, seed=1), torch.from_numpy(_dense(1, 16, 4, seed=1))
+    state, rows, temp = _state(8, 8, 28, seed=1), torch.arange(5), _abs_temp()
+    assert assemble.ms_assemble_rows(*cuda_params.launch_args(state, dense, tables, temp, rows),
+                                     None) != 0
+
+
+@pytest.mark.parametrize("fault", ["token", "row"])
+def test_emulated_assembly_traps_on_a_token_or_row_outside_the_tables(assemble, fault):
+    # a trap ends the emulated process, so the launch runs in a child
+    script = f"""
+import ctypes, sys
+sys.path.insert(0, {str(Path(__file__).parent)!r})
+import torch
+from test_torch_assemble import _abs_temp, _dense, _state, _tables
+from magicsoup_tpu_torch.ops import cuda_params
+lib = ctypes.CDLL({assemble._name!r})
+lib.ms_assemble_rows.argtypes = [ctypes.c_void_p] * 4
+tables = _tables(28, seed=1)
+dense = torch.from_numpy(_dense(1, 16, 4, seed=1))
+state, rows, temp = _state(8, 16, 28, seed=1), torch.arange(5), _abs_temp()
+if {fault!r} == "token":
+    dense[0, 0, 0] = torch.tensor([1, 1, tables.km_weights.shape[0], 1, 1])
+else:
+    rows[1] = 8
+print("returned", lib.ms_assemble_rows(*cuda_params.launch_args(state, dense, tables, temp, rows), None))
+"""
+    proc = subprocess.run([sys.executable, "-c", script], capture_output=True, text=True,
+                          timeout=300, cwd=Path(__file__).parents[1])
+    assert proc.returncode != 0, proc.stdout
+    assert "emulated __trap" in proc.stderr, proc.stderr[-2000:]

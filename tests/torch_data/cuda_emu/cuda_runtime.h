@@ -7,12 +7,15 @@
 #pragma once
 
 #include <math.h>
+#include <xmmintrin.h>
 
 #include <atomic>
 #include <barrier>
 #include <cmath>
 #include <cstddef>
 #include <cstdint>
+#include <cstdio>
+#include <cstdlib>
 #include <cstring>
 #include <memory>
 #include <thread>
@@ -29,8 +32,11 @@
 
 using std::fmaxf;
 using std::fminf;
+using std::isfinite;
 using std::isinf;
 using std::isnan;
+using std::rint;
+using std::signbit;
 
 struct dim3 {
   unsigned x, y, z;
@@ -66,12 +72,53 @@ inline float __int_as_float(int v) {
   return f;
 }
 
+inline int __float_as_int(float f) {
+  int v;
+  std::memcpy(&v, &f, sizeof v);
+  return v;
+}
+
+inline double __longlong_as_double(long long v) {
+  double d;
+  std::memcpy(&d, &v, sizeof d);
+  return d;
+}
+
+// the round-to-nearest intrinsics: plain IEEE operations here (the test
+// builds with -ffp-contract=off, so none is fused)
+inline double __dmul_rn(double a, double b) { return a * b; }
+inline double __dadd_rn(double a, double b) { return a + b; }
+inline double __dsub_rn(double a, double b) { return a - b; }
+inline float __fmul_rn(float a, float b) { return a * b; }
+inline float __fdiv_rn(float a, float b) { return a / b; }
+inline float __double2float_rn(double v) { return (float)v; }
+
+inline unsigned __brev(unsigned v) {
+  unsigned r = 0;
+  for (int i = 0; i < 32; ++i) r |= ((v >> i) & 1u) << (31 - i);
+  return r;
+}
+inline int __clz(int v) { return v == 0 ? 32 : __builtin_clz((unsigned)v); }
+
+// a trap ends the process here: the card's would end the CUDA context
+[[noreturn]] inline void __trap() {
+  std::fputs("emulated __trap\n", stderr);
+  std::abort();
+}
+
+// Whether the emulated threads flush subnormal operands and results to
+// zero (the x86 FTZ and DAZ bits), as the CPU's plain versions run inside
+// ops/detmath.py::flush_denormal; the card does not flush.
+inline bool emu_flush = false;
+extern "C" void emu_set_flush_denormal(int on) { emu_flush = on != 0; }
+
 alignas(16) inline unsigned char emu_smem[EMU_SMEM_LIMIT];
 inline std::barrier<>* emu_cta_barrier;
 inline std::barrier<>* emu_warp_barrier[32];
 inline std::atomic<int> emu_vote[2];
 inline thread_local int emu_votes_cast;
 inline float emu_lanes_f[1024];
+inline double emu_lanes_d[1024];
 inline int emu_lanes_i[1024];
 
 inline void __syncthreads() { emu_cta_barrier->arrive_and_wait(); }
@@ -93,6 +140,26 @@ inline float __shfl_xor_sync(unsigned, float v, int mask) {
   emu_lanes_f[t] = v;
   __syncwarp();
   const float got = emu_lanes_f[(t & ~31) | ((t & 31) ^ mask)];
+  __syncwarp();
+  return got;
+}
+
+inline double __shfl_down_sync(unsigned, double v, int delta) {
+  const int t = threadIdx.x;
+  __syncwarp();
+  emu_lanes_d[t] = v;
+  __syncwarp();
+  const double got = (t & 31) + delta < 32 ? emu_lanes_d[t + delta] : v;
+  __syncwarp();
+  return got;
+}
+
+inline double __shfl_sync(unsigned, double v, int src) {
+  const int t = threadIdx.x;
+  __syncwarp();
+  emu_lanes_d[t] = v;
+  __syncwarp();
+  const double got = emu_lanes_d[(t & ~31) | (src & 31)];
   __syncwarp();
   return got;
 }
@@ -128,6 +195,7 @@ void emu_launch(K kernel, dim3 grid, int threads, Args... args) {
       std::vector<std::thread> block;
       for (int t = 0; t < threads; ++t)
         block.emplace_back([&, t] {
+          if (emu_flush) _mm_setcsr(_mm_getcsr() | 0x8040);
           threadIdx = dim3(t);
           blockIdx = dim3(bx, by);
           emu_votes_cast = 0;

@@ -230,20 +230,21 @@ def _sync(device) -> None:
 
 def _counts() -> dict:
     from magicsoup_tpu_torch.analysis import runtime
-    from magicsoup_tpu_torch.ops import cuda_integrate, cuda_prng
+    from magicsoup_tpu_torch.ops import cuda_integrate, cuda_params, cuda_prng
 
     return {
         "k1_k2": cuda_integrate.launches,
         "threefry": cuda_prng.launches,
+        "assembly": cuda_params.launches,
         **runtime.collective_stats(),
     }
 
 
 def _zero_counts() -> None:
     from magicsoup_tpu_torch.analysis import runtime
-    from magicsoup_tpu_torch.ops import cuda_integrate, cuda_prng
+    from magicsoup_tpu_torch.ops import cuda_integrate, cuda_params, cuda_prng
 
-    cuda_integrate.launches = cuda_prng.launches = 0
+    cuda_integrate.launches = cuda_prng.launches = cuda_params.launches = 0
     runtime.reset_counters()
 
 
