@@ -7,6 +7,19 @@ TINY_CONFIG = {"n_cells": 300, "map_size": 24}
 TINY_WORKLOAD = {"warmup_steps": 3, "trace_steps": 3}
 
 
+@pytest.fixture(autouse=True)
+def molecule_registry(monkeypatch):
+    """An empty registry of the program's molecules for each test, the
+    previous one restored after it.  The program interns a molecule by
+    name for the whole process and refuses the name again with other
+    values, and chemistries disagree on shared molecules (NADP, ADP): so
+    each test builds its worlds as a run does, one chemistry in the
+    process, and tests of two chemistries run in one process."""
+    from magicsoup_tpu_torch.containers import Molecule
+
+    monkeypatch.setattr(Molecule, "_registry", {})
+
+
 @pytest.fixture
 def tiled_integrator(monkeypatch):
     monkeypatch.setenv("MAGICSOUP_TPU_TORCH_INTEGRATOR", "cuda")

@@ -5,8 +5,10 @@ activity, kill below and divide above a threshold of the selection
 molecule (at a cost), recombinate, mutate, degrade and diffuse.  A frozen
 copy of it, calling ``World``'s methods; it bypasses the stepper.  With
 the workload's ``hold_population``, cells beyond the size are removed at
-random (drawn from the seed) where the loop tops up, as a user passages a
-culture, so that every step starts from the same number of cells.  Its
+random where the loop tops up, as a user passages a culture, so that
+every step starts from the same number of cells.  Genomes, top-ups and
+passaging are drawn from the configuration's ``world_seed``
+(:func:`benchmark.worlds.world_seed`).  Its
 integrator runs inside this driver's own ``bench:activity`` range, and
 the genome engine's time (recombinate plus mutate) is its own span.
 """
@@ -33,7 +35,7 @@ class Driver:
         self.atp = self.world.chemistry.molname_2_idx[config["selection_molecule"]]
         self.seed = seed
         self.hold = bool(workload.get("hold_population", False))
-        self.rng = np.random.default_rng(seed)
+        self.rng = np.random.default_rng(worlds.world_seed(config, seed))
         self.topups = 0
         self.removed = 0
         self.genome_s = 0.0
@@ -52,8 +54,7 @@ class Driver:
         missing = cfg["n_cells"] - w.n_cells
         if missing > 0:
             self.topups += 1
-            w.spawn_cells(worlds.genomes(self.seed * 1_000_003 + self.topups, missing,
-                                         cfg["init_genome_size"]))
+            w.spawn_cells(worlds.input_genomes(cfg, self.seed, self.topups, missing))
         elif missing < 0 and self.hold:
             gone = self.rng.choice(w.n_cells, size=-missing, replace=False)
             w.kill_cells(cell_idxs=np.sort(gone).tolist())

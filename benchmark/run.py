@@ -44,8 +44,11 @@ HERE = Path(__file__).resolve().parent
 ROOT = HERE.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "magicsoup_tpu")
 #: host threads for OpenMP (the genome engine's) and torch, fixed so that a
-#: run's host load does not follow the machine's core count (8 on the card's)
-HOST_THREADS = 4
+#: run's host load does not follow the machine's core count (8 on the card's).
+#: One: the card's host shares its cores, and a parallel region waits for
+#: its slowest thread; with four, the engine's phases ran up to twice as
+#: long in some runs, and the loop ran slower than with one
+HOST_THREADS = 1
 
 
 class Run(NamedTuple):

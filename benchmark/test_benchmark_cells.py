@@ -2,6 +2,8 @@
 frozen driver and the reference, and its result has the contract's keys."""
 import json
 
+import numpy as np
+
 import pytest
 
 from benchmark import run
@@ -45,3 +47,22 @@ def test_traced_run_has_per_layer_keys(name, tiled_integrator):
 def test_p95():
     assert run.p95([float(i) for i in range(101)]) == pytest.approx(95.0)
     assert run.p95([1.0, 2.0]) == pytest.approx(1.95)
+
+
+@pytest.mark.parametrize("name", CELLS)
+def test_every_seed_is_given_the_same_work(name):
+    """Where the configuration fixes ``world_seed``, two run seeds give the
+    world the same genomes and top-ups; the judged sample follows the seed."""
+    from benchmark import worlds
+    from benchmark.reference import judge
+
+    _, _, _, config = run.cell_files(name)
+    assert "world_seed" in config
+    a, b = 2**31 + 3, 7
+    for k in (0, 1, 2):
+        assert worlds.input_genomes(config, a, k, 4) == worlds.input_genomes(config, b, k, 4)
+    assert worlds.input_genomes(config, a, 0, 4) != worlds.input_genomes(config, a, 1, 4)
+    pos = np.stack(np.meshgrid(np.arange(config["map_size"]), np.arange(config["map_size"])),
+                   -1).reshape(-1, 2)
+    judged = [judge.plan(pos, config["map_size"], s).interior for s in (a, b)]
+    assert not np.array_equal(*judged)

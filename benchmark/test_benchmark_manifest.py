@@ -9,6 +9,7 @@ from benchmark.reference import judge
 
 MANIFEST = json.loads((run.ROOT / "BENCHMARK.json").read_text())
 CELLS = [w["name"] for w in MANIFEST["workloads"]]
+CHEMISTRIES = sorted(p.stem for p in (run.HERE / "chemistries").glob("*.json"))
 KEYS = {"command", "paths", "run_seconds", "configs", "workloads", "end_to_end", "per_layer"}
 
 
@@ -49,10 +50,13 @@ def test_metric_reader(metric):
         assert cell in CELLS
 
 
-def test_chemistry_is_the_ports_example():
-    from magicsoup_tpu_torch.examples.wood_ljungdahl import CHEMISTRY
-
-    data = worlds.chemistry_data("wood_ljungdahl")
+@pytest.mark.parametrize("name", CHEMISTRIES)
+def test_chemistry_is_the_ports_example(name):
+    """Each chemistry file equals the port's example module of its name
+    (imported into the test's own molecule registry)."""
+    CHEMISTRY = importlib.import_module(f"magicsoup_tpu_torch.examples.{name}").CHEMISTRY
+    data = worlds.chemistry_data(name)
+    assert data["source"].endswith(f"/python/magicsoup/examples/{name}.py")
     assert [m["name"] for m in data["molecules"]] == [m.name for m in CHEMISTRY.molecules]
     for m, d in zip(CHEMISTRY.molecules, data["molecules"]):
         assert (m.energy, m.half_life, m.diffusivity, m.permeability) == (

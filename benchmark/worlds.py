@@ -42,15 +42,26 @@ def genomes(seed: int, n: int, size: int) -> list[str]:
 
 
 def world_seed(config: dict, seed: int) -> int:
-    """The World's own seed, which draws its genetic code (the codon and
-    token maps), its map and its placements: the configuration's
-    ``world_seed`` where it fixes one, so that every run seed plays on one
-    genetic code and draws its genomes from ``seed``; else ``seed``."""
+    """The seed of what the cell's world is given: the World's own seed
+    (its genetic code, its map and its placements), its genomes
+    (:func:`input_genomes`) and the cells the loop passages.  The
+    configuration's ``world_seed`` where it fixes one, so that every run
+    seed does the same work: a world's trajectory follows every difference
+    in what it is given, and runs that drew their genomes and passaging
+    from the run seed, or only their order, did up to 1.5x the work of
+    others; the run seed then draws the cells and pixels that the
+    correctness check judges.  Else ``seed``."""
     return int(config.get("world_seed", seed))
 
 
+def input_genomes(config: dict, seed: int, k: int, n: int) -> list[str]:
+    """The ``k``-th batch of ``n`` genomes given to the world (0: the
+    initial population; 1, 2, ...: the top-ups), from :func:`world_seed`."""
+    return genomes(world_seed(config, seed) * 1_000_003 + k, n, config["init_genome_size"])
+
+
 def make_world(config: dict, workload: dict, seed: int, device):
-    """A populated world of the configuration, its genomes from ``seed``."""
+    """A populated world of the configuration."""
     import magicsoup_tpu_torch as mt
 
     chem = program_chemistry(chemistry_data(config["chemistry"]))
@@ -58,7 +69,7 @@ def make_world(config: dict, workload: dict, seed: int, device):
                      seed=world_seed(config, seed),
                      abs_temp=config["abs_temp"], mol_map_init=config["mol_map_init"],
                      device=device, genome_backend=workload["genome_backend"])
-    world.spawn_cells(genomes(seed, config["n_cells"], config["init_genome_size"]))
+    world.spawn_cells(input_genomes(config, seed, 0, config["n_cells"]))
     return world
 
 
