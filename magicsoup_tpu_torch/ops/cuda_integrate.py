@@ -147,11 +147,46 @@ def plan(p: int, s: int, limit: int = SMEM_LIMIT, groups: int = ALL_RESIDENT) ->
     if need > limit:
         raise SharedMemoryLimitError(
             f"{p} proteins x {s} signals need {need} bytes of shared memory"
-            f" per tile of {TILE_C} cells; the card allows {limit}"
+            f" per tile of {TILE_C} cells; the card allows {limit}:"
+            f" at most {max_proteins(s, limit)} proteins a cell fit at {s} signals."
+            " The protein axis follows the longest proteome, so hold genome"
+            " sizes down with a size-based kill (docs/tutorials.md, \"Genome size\")"
         )
     route = "resident" if mask == ALL_RESIDENT else ("partial" if mask else "streamed")
     names = tuple(name for name, bit in GROUPS if mask & bit)
     return Plan(route, mask, names, need)
+
+
+def max_proteins(s: int, limit: int = SMEM_LIMIT) -> int:
+    """The largest power-of-two protein count whose scratch (no group
+    resident) fits ``limit`` bytes at ``s`` signals; 0 if none does.
+    The parameter tensors' protein axis grows in powers of two, so this
+    is the most the kernel takes."""
+    if smem_bytes(1, s, 0) > limit:
+        return 0
+    p = 1
+    while smem_bytes(2 * p, s, 0) <= limit:
+        p *= 2
+    return p
+
+
+@functools.lru_cache(maxsize=None)
+def _row_bytes(p: int, s: int, mask: int) -> tuple[int, int]:
+    """Per row: the bytes of the six parameter groups as the kernel lays
+    them out for (p, s), and those of the groups in ``mask``."""
+    scratch = smem_bytes(p, s, 0)
+    return ((smem_bytes(p, s, ALL_RESIDENT) - scratch) // TILE_C,
+            (smem_bytes(p, s, mask) - scratch) // TILE_C)
+
+
+def route_bytes(p: int, s: int, rows: int, mask: int) -> tuple[int, int]:
+    """The parameter bytes of one launch over ``rows`` rows at (p, s), in
+    the kernel's layout (rows padded to :func:`smem_bytes`' strides), and
+    the share of them that a launch with the groups of ``mask`` resident
+    stages in shared memory: ``(param_bytes, staged_bytes)``.  The rest
+    is read from device memory."""
+    param, staged = _row_bytes(p, s, mask)
+    return rows * param, rows * staged
 
 
 def select_tile_c(c: int) -> int:

@@ -1064,7 +1064,10 @@ class World:
         that molecule's column starts its device->host copy right away
         (a later :meth:`cell_molecule_column` picks it up).  Counts the
         integrator's calls, its kernel launches, and the rows and
-        protein slots it was handed (``integrator.*``)."""
+        protein slots it was handed (``integrator.*``); where the kernel
+        launched, also its parameter bytes in the kernel's layout, those
+        its launch plan stages in shared memory, and its launches by route
+        (:func:`~magicsoup_tpu_torch.ops.cuda_integrate.route_bytes`)."""
         if self.n_cells == 0:
             return
         has_col = prefetch_column is not None
@@ -1078,12 +1081,29 @@ class World:
             with self._ftz():
                 self._molecule_map, self._cell_molecules = self._activity_at(q)
             _runtime.note_program_shape(self._activity_variant_key(q, has_col))
+        launched = _cuda_integrate.launches - launches
+        p = self.kinetics.params.Vmax.shape[1]
         _telemetry.count("integrator.calls")
-        _telemetry.count("integrator.launches", _cuda_integrate.launches - launches)
+        _telemetry.count("integrator.launches", launched)
         _telemetry.count("integrator.rows", q)
-        _telemetry.count("integrator.p", self.kinetics.params.Vmax.shape[1])
+        _telemetry.count("integrator.p", p)
+        if launched:
+            self._count_route(p, q, launched)
         if has_col:
             self.prefetch_cell_molecule_column(prefetch_column)
+
+    def _count_route(self, p: int, q: int, launched: int) -> None:
+        """Count the integrator kernel's route for ``launched`` launches of
+        ``q`` rows at ``p`` proteins: its plan is the launch's own
+        (cached per shape)."""
+        n = self.kinetics.params.N
+        s = n.shape[-1]
+        limit = _cuda_integrate.smem_limit(n.device.index)
+        how = _cuda_integrate.launch_plan(p, s, limit)
+        param, staged = _cuda_integrate.route_bytes(p, s, q, how.mask)
+        _telemetry.count("integrator.param_bytes", launched * param)
+        _telemetry.count("integrator.staged_bytes", launched * staged)
+        _telemetry.count(f"integrator.{how.route}_launches", launched)
 
     def _activity_at(self, q: int) -> tuple[torch.Tensor, torch.Tensor]:
         """The activity's new ``(molecule_map, cell_molecules)`` over the
