@@ -13,9 +13,23 @@
 // kernel keeps its first version's summation orders, so its bits are that
 // version's.
 //
-// The body -- mapping, residency, numerics -- is the device functions of
-// integrate_body.cuh, which the ladder of its sub-expressions (bisect.cu)
-// runs too; this kernel composes them.
+// The body -- mapping, residency, extent, numerics -- is the device
+// functions of integrate_body.cuh, which the ladder of its sub-expressions
+// (bisect.cu) runs too; this kernel composes them (run_tile).
+//
+// Extents.  The protein axis p is the world's longest proteome, rounded up
+// to a power of two, and most cells hold a few proteins: at 28 signals and
+// p 512 about 2% of the slots are live.  Each warp scans its cell's rows
+// from the end for its extent (one past its last slot that is not inert;
+// integrate_body.cuh) and walks only the slots below it, so a tile's
+// passes cost its widest cell, not p.  The scan reads the padding once
+// (the i16 rows as words where they align); a cell whose last slot is
+// live reads one row.  The output is the walk over all p slots, bit for
+// bit; the staging, the layout, the launch plan and the vote stay those
+// of p.  Staging only each cell's slots below its extent was measured
+// too: any second staging path, inline or out of line, slowed the full
+// tiles of K1's microbenchmark by 4-6%, and staged the padded ones only
+// 0-5% faster.
 //
 // Worlds.  The grid is (c / TILE_C, B): blockIdx.y is the world, and a
 // tile never crosses a world, so world w of a batched launch computes
@@ -67,6 +81,45 @@ using namespace msbody;
 
 namespace {
 
+// One tile, for both entries: this warp's cell's extent (cell_extent),
+// the tile's staging (stage_tile), the slot counters, and three trim
+// passes over the cell's extent, from its signals X to out.  `slots`,
+// when not null, gets the sum of the tile's extents and TILE_C times the
+// largest (the slots the tile walks), once per CTA.
+template <bool RESIDENT>
+__device__ __forceinline__ void run_tile(unsigned char* smem, const Globals& g,
+                                         int mask, int64_t prow0, int p,
+                                         int s, const float* X, float* out,
+                                         unsigned long long* slots) {
+  const int warp = threadIdx.x / WARP;
+  const int lane = threadIdx.x % WARP;
+  const int ext = cell_extent(g, prow0 + warp, p, s, lane);
+  // the tile's extents, in warp 0's scratch (stage_tile writes none of
+  // the scratch), for thread 0 to read after stage_tile's barrier
+  int* tile_ext = (int*)smem;
+  if (lane == 0) tile_ext[warp] = ext;
+  const Layout L = tile_layout(p, s, RESIDENT ? RES_ALL : mask);
+  const CellPtrs cp =
+      stage_tile<RESIDENT>(smem, L, mask, g, prow0, p, s, warp, lane);
+  if (slots != nullptr && threadIdx.x == 0) {
+    unsigned long long live = 0;
+    int widest = 0;
+    for (int i = 0; i < TILE_C; ++i) {
+      live += tile_ext[i];
+      widest = tile_ext[i] > widest ? tile_ext[i] : widest;
+    }
+    atomicAdd(slots, live);
+    atomicAdd(slots + 1, (unsigned long long)TILE_C * widest);
+  }
+  __syncwarp();  // warp 0's lanes write over tile_ext next
+  const Scratch w = cell_scratch(smem, warp, p, s);
+  for (int j = lane; j < s; j += WARP) w.x0[j] = X[j];
+  __syncwarp();
+  for (int pass = 0; pass < 3; ++pass)
+    trim_pass(cp, w, lane, ext, s, trim_factor(pass));
+  for (int j = lane; j < s; j += WARP) out[j] = w.x0[j];
+}
+
 // RESIDENT: every group in shared memory (mask == RES_ALL), with loads the
 // compiler knows to be shared; else the groups of `mask`.  Two CTAs of the
 // resident route share an SM at the workload's shape, so it keeps within
@@ -80,28 +133,16 @@ integrate_kernel(const float* __restrict__ X, const float* __restrict__ Ke,
                  const int16_t* __restrict__ N, const int16_t* __restrict__ Nf,
                  const int16_t* __restrict__ Nb, const int16_t* __restrict__ A,
                  float* __restrict__ out, int c, int p, int s,
-                 int64_t pstride, int mask) {
+                 int64_t pstride, int mask, unsigned long long* slots) {
   extern __shared__ __align__(16) unsigned char smem[];
   const Globals g{Ke, Kmf, Kmb, Kmr, Vmax, N, Nf, Nb, A};
-  const int warp = threadIdx.x / WARP;
-  const int lane = threadIdx.x % WARP;
   const int64_t row0 = (int64_t)blockIdx.x * TILE_C;
-  const Layout L = tile_layout(p, s, RESIDENT ? RES_ALL : mask);
-  const CellPtrs cp = stage_tile<RESIDENT>(
-      smem, L, mask, g, (int64_t)blockIdx.y * pstride + row0, p, s, warp,
-      lane);
-  const Scratch w = cell_scratch(smem, warp, p, s);
-
   // offset once: with the row index live across the body, ptxas spilled
   // at the first version's register budget
-  const int64_t cell = (int64_t)blockIdx.y * c + row0 + warp;  // X row
-  X += cell * s;
-  out += cell * s;
-  for (int j = lane; j < s; j += WARP) w.x0[j] = X[j];
-  __syncwarp();
-  for (int pass = 0; pass < 3; ++pass)
-    trim_pass(cp, w, lane, p, s, trim_factor(pass));
-  for (int j = lane; j < s; j += WARP) out[j] = w.x0[j];
+  const int64_t cell =
+      (int64_t)blockIdx.y * c + row0 + threadIdx.x / WARP;  // X row
+  run_tile<RESIDENT>(smem, g, mask, (int64_t)blockIdx.y * pstride + row0, p,
+                     s, X + cell * s, out + cell * s, slots);
 }
 
 template <bool RESIDENT>
@@ -115,7 +156,7 @@ cudaError_t allow_smem(size_t bytes) {
 // launch takes up to MAX_GROUPS of them: the grid is flattened over every
 // tile of every world of every group, and a CTA finds its group by the
 // groups' first tiles (a prefix of their tile counts).  Past that lookup it
-// runs integrate_kernel's body on its group's pointers, so each world of a
+// runs integrate_kernel's tile (run_tile) on its group's pointers, so each world of a
 // group computes exactly what the group's own launch computes: the same
 // device functions, the same tile and vote, the same build flags.
 constexpr int MAX_GROUPS = 16;
@@ -141,6 +182,7 @@ struct Group {
 // device per launch, so the enqueue stays free of synchronization.
 struct GroupTable {
   Group g[MAX_GROUPS];
+  unsigned long long* slots;  // run_tile's counters, or null
   int n;
 };
 
@@ -159,22 +201,10 @@ integrate_grouped_kernel(const __grid_constant__ GroupTable table) {
   const int64_t t = bid - G.first_tile;
   const int64_t world = t / tiles;
   const Globals g{G.Ke, G.Kmf, G.Kmb, G.Kmr, G.Vmax, G.N, G.Nf, G.Nb, G.A};
-  const int warp = threadIdx.x / WARP;
-  const int lane = threadIdx.x % WARP;
   const int64_t row0 = (t - world * tiles) * TILE_C;
-  const Layout L = tile_layout(p, s, RESIDENT ? RES_ALL : G.mask);
-  const CellPtrs cp = stage_tile<RESIDENT>(
-      smem, L, G.mask, g, world * G.pstride + row0, p, s, warp, lane);
-  const Scratch w = cell_scratch(smem, warp, p, s);
-
-  const int64_t cell = world * G.c + row0 + warp;  // X row
-  const float* X = G.X + cell * s;
-  float* out = G.out + cell * s;
-  for (int j = lane; j < s; j += WARP) w.x0[j] = X[j];
-  __syncwarp();
-  for (int pass = 0; pass < 3; ++pass)
-    trim_pass(cp, w, lane, p, s, trim_factor(pass));
-  for (int j = lane; j < s; j += WARP) out[j] = w.x0[j];
+  const int64_t cell = world * G.c + row0 + threadIdx.x / WARP;  // X row
+  run_tile<RESIDENT>(smem, g, G.mask, world * G.pstride + row0, p, s,
+                     G.X + cell * s, G.out + cell * s, table.slots);
 }
 
 template <bool RESIDENT>
@@ -187,9 +217,11 @@ cudaError_t allow_grouped_smem(size_t bytes) {
 // group's layout: a smaller group's CTAs pay its occupancy.
 template <bool RESIDENT>
 cudaError_t launch_route(const Group* groups, const int* B, const int* idx,
-                         int n, cudaStream_t st, int* launched) {
+                         int n, unsigned long long* slots, cudaStream_t st,
+                         int* launched) {
   for (int lo = 0; lo < n; lo += MAX_GROUPS) {
     GroupTable table;
+    table.slots = slots;
     table.n = n - lo < MAX_GROUPS ? n - lo : MAX_GROUPS;
     int64_t tiles = 0;
     size_t smem = 0;
@@ -230,13 +262,16 @@ size_t ms_integrate_smem_bytes(int p, int s, int mask) {
 // Ke/Kmf/Kmb/Vmax (p) f32, Kmr (p, s) f32 and N/Nf/Nb/A (p, s) i16, rows
 // row-major; the first c rows of each world are read.  c % TILE_C == 0,
 // B <= 65535; `mask` the resident groups, whose layout must fit the
-// card's shared memory.  Launches on `stream` without synchronizing;
-// returns cudaGetLastError().
+// card's shared memory.  `slots` (2 counters in device memory, or null)
+// gets the launch's sum of the cells' protein extents and of the slots
+// its tiles walk (TILE_C x each tile's largest extent).  Launches on
+// `stream` without synchronizing; returns cudaGetLastError().
 int ms_integrate_signals(const float* X, const float* Ke, const float* Kmf,
                          const float* Kmb, const float* Kmr, const float* Vmax,
                          const int16_t* N, const int16_t* Nf, const int16_t* Nb,
                          const int16_t* A, float* out, int B, int c, int p,
-                         int s, long long pstride, int mask, void* stream) {
+                         int s, long long pstride, int mask,
+                         unsigned long long* slots, void* stream) {
   if (mask < 0 || mask > RES_ALL) return (int)cudaErrorInvalidValue;
   if (c == 0 || B == 0) return (int)cudaSuccess;
   const size_t smem = tile_layout(p, s, mask).bytes;
@@ -248,25 +283,27 @@ int ms_integrate_signals(const float* X, const float* Ke, const float* Kmf,
   if (resident)
     integrate_kernel<true><<<grid, THREADS, smem, st>>>(
         X, Ke, Kmf, Kmb, Kmr, Vmax, N, Nf, Nb, A, out, c, p, s,
-        (int64_t)pstride, mask);
+        (int64_t)pstride, mask, slots);
   else
     integrate_kernel<false><<<grid, THREADS, smem, st>>>(
         X, Ke, Kmf, Kmb, Kmr, Vmax, N, Nf, Nb, A, out, c, p, s,
-        (int64_t)pstride, mask);
+        (int64_t)pstride, mask, slots);
   return (int)cudaGetLastError();
 }
 
 // The grouped launch: n groups, group k with ptrs[11k .. 11k+11) = X, Ke,
 // Kmf, Kmb, Kmr, Vmax, N, Nf, Nb, A, out (as ms_integrate_signals takes
 // them) and dims[5k .. 5k+5) = B, c, p, s, mask, pstrides[k] its world
-// stride in parameter rows.  Each group runs exactly what its own
+// stride in parameter rows; `slots` as ms_integrate_signals takes it, for
+// every group.  Each group runs exactly what its own
 // ms_integrate_signals call runs.  The resident groups (mask RES_ALL) go
 // into one launch and the others into another, MAX_GROUPS per launch;
 // *launched gets the number of launches.  Groups with no rows or no
 // worlds launch nothing.  Returns cudaGetLastError() of the last launch.
 int ms_integrate_signals_grouped(int n, const void* const* ptrs,
                                  const int* dims, const long long* pstrides,
-                                 int* launched, void* stream) {
+                                 unsigned long long* slots, int* launched,
+                                 void* stream) {
   *launched = 0;
   if (n < 0) return (int)cudaErrorInvalidValue;
   std::vector<Group> groups(n > 0 ? n : 1);
@@ -302,10 +339,10 @@ int ms_integrate_signals_grouped(int n, const void* const* ptrs,
   const cudaStream_t st = (cudaStream_t)stream;
   cudaError_t err = launch_route<true>(groups.data(), B.data(),
                                        resident.data(), (int)resident.size(),
-                                       st, launched);
+                                       slots, st, launched);
   if (err != cudaSuccess) return (int)err;
   err = launch_route<false>(groups.data(), B.data(), other.data(),
-                            (int)other.size(), st, launched);
+                            (int)other.size(), slots, st, launched);
   return (int)err;
 }
 

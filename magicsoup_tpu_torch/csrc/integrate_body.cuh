@@ -40,6 +40,25 @@
 // cp.async.bulk per tensor could fill) costs 2-way bank conflicts at
 // s = 28 and up to 32-way at s a multiple of 64.
 //
+// Extent.  A cell's proteins sit at the front of its p slots, and the
+// protein axis p follows the longest proteome of the world, so most slots
+// of most cells are padding.  A slot k is inert when its N, Nf and Nb rows
+// are zero, its Vmax is finite, and no entry with A != 0 meets a negative
+// Kmr.  Then kf = kb = 0, so a_cat = (0 - 0) / 1 = +0; the allosteric
+// factor is finite (each r = xa / (xa + Kmr) is NaN, which counts as 1,
+// or lies in [0, 1], so the regulation sum is finite and <= 0); and
+// max(Vmax * trim, 0) is finite: V = +-0, so W = WF = +-0.  Every term the
+// slot adds to a serial sum over proteins (the guard's removed amounts,
+// the update, each correction step) is +-0, and those sums start at +0,
+// which adding +-0 never turns into -0: so adding the term changes no bit.
+// Its |V| > IMPACT is false, so it casts no vote, and its flags and Fe
+// are read by no one else.  An A-only slot (a protein with only regulatory
+// domains) is inert; a non-finite Vmax (V = 0 * Inf = NaN) or a negative
+// Kmr under A != 0 (r can be +Inf, 0 * Inf again) is not.  cell_extent
+// gives one past a cell's last slot that is not inert, from the kernel's
+// own inputs, and the body's protein loops stop there: the output is the
+// walk over all p slots, bit for bit.  Dead rows (all zero) have extent 0.
+//
 // Numerics.  expf/logf (not the __expf intrinsics), IEEE division, built
 // without --use_fast_math and with --fmad=false, so no multiply is fused
 // into the following add as PyTorch's eager ops never do.  i16 parameters
@@ -349,6 +368,101 @@ __device__ __forceinline__ CellPtrs stage_tile(unsigned char* smem,
   return cp;
 }
 
+// Words of the i16 parameter rows as the extent's scan reads them: two
+// entries a word where the cell's rows allow it, else one.
+template <class W>
+struct Halves;
+template <>
+struct Halves<int16_t> {
+  static constexpr int N = 1;
+  static __device__ __forceinline__ int at(int16_t w, int) { return w; }
+};
+template <>
+struct Halves<uint32_t> {
+  static constexpr int N = 2;
+  static __device__ __forceinline__ int at(uint32_t w, int h) {
+    return (int16_t)(h ? w >> 16 : w & 0xFFFF);
+  }
+};
+
+// One past the last slot of the cell whose parameter row is prow that its
+// i16 rows and Kmr make not inert (see Extent above): its (p, s) rows
+// scanned in words of W from the end down, first the last row, then 32 x
+// 8 words at a time, and stopped at the first chunk that holds such a
+// slot.  Kmr is read only for an entry with A != 0 above the last nonzero
+// N, Nf or Nb entry, so no load waits on another where a row is live.
+// Warp-uniform.
+template <class W>
+__device__ __forceinline__ int scan_rows(const Globals& g, int64_t prow,
+                                         int p, int s, int lane) {
+  constexpr int H = Halves<W>::N;
+  constexpr int U = 8;
+  const int64_t base = prow * p * s;
+  const W* N = (const W*)(g.N + base);
+  const W* Nf = (const W*)(g.Nf + base);
+  const W* Nb = (const W*)(g.Nb + base);
+  const W* A = (const W*)(g.A + base);
+  const float* kmr = g.Kmr + base;
+  int hi = p * s / H;           // words [lo, hi) next
+  int chunk = (s + H - 1) / H;  // the last row first
+  while (hi > 0) {
+    const int lo = hi > chunk ? hi - chunk : 0;
+    int xe = 0, ae = 0;  // one past the last entry with N|Nf|Nb, A != 0
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int w = hi - 1 - lane - u * WARP;
+      if (w < lo) continue;
+      const W x = N[w] | Nf[w] | Nb[w];
+      const W a = A[w];
+      for (int h = 0; h < H; ++h) {
+        const int e = w * H + h + 1;
+        if (Halves<W>::at(x, h) != 0 && e > xe) xe = e;
+        if (Halves<W>::at(a, h) != 0 && e > ae) ae = e;
+      }
+    }
+    int last = xe > 0 ? (xe - 1) / s + 1 : 0;
+    last = __reduce_max_sync(0xFFFFFFFFu, last);
+    const int above = last * s;  // entries from here on are past the slots'
+    if (__any_sync(0xFFFFFFFFu, ae > above)) {
+      int ke = 0;
+      for (int e = lo * H + lane; e < hi * H; e += WARP)
+        if (e >= above && Halves<W>::at(A[e / H], e % H) != 0 && kmr[e] < 0.f)
+          ke = e + 1;
+      ke = __reduce_max_sync(0xFFFFFFFFu, ke > 0 ? (ke - 1) / s + 1 : 0);
+      last = ke > last ? ke : last;
+    }
+    if (last > 0) return last;
+    hi = lo;
+    chunk = U * WARP;
+  }
+  return 0;
+}
+
+// The extent of the cell whose parameter row is prow: one past its last
+// slot that is not inert (see Extent above), the same on every lane of
+// the warp; 0 for a dead row.  The rows first (two i16 entries a word
+// where they align), then Vmax above their extent: a cell whose last slot
+// is live reads one row.
+__device__ __forceinline__ int cell_extent(const Globals& g, int64_t prow,
+                                           int p, int s, int lane) {
+  const int64_t base = prow * p * s;
+  const uintptr_t addr = (uintptr_t)(g.N + base) | (uintptr_t)(g.Nf + base) |
+                         (uintptr_t)(g.Nb + base) | (uintptr_t)(g.A + base);
+  const int rows = (p * s) % 2 == 0 && addr % 4 == 0
+                       ? scan_rows<uint32_t>(g, prow, p, s, lane)
+                       : scan_rows<int16_t>(g, prow, p, s, lane);
+  int last = 0;
+  const float* vmax = g.Vmax + prow * p;
+  for (int k = rows + lane; k < p; k += WARP)
+    if (!isfinite(vmax[k])) last = k + 1;
+  last = __reduce_max_sync(0xFFFFFFFFu, last);
+  return rows > last ? rows : last;
+}
+
+// The phases below walk the cell's first `ext` protein slots: its extent
+// (cell_extent) in the integrator, p in the ladder.  The slots past it are
+// inert, so the walk computes what a walk over all p slots computes.
+
 // ---- velocities (_velocities, mosaic-safe regulation) ----
 // V[k] from the signals x0 and the per-protein Vmax that vmax_at(k)
 // gives (a trim pass: max(Vmax * trim, 0)).  Lanes over proteins; an
@@ -356,12 +470,12 @@ __device__ __forceinline__ CellPtrs stage_tile(unsigned char* smem,
 // nothing.
 template <class VmaxAt>
 __device__ __forceinline__ void velocities(const CellPtrs& cp,
-                                           const Scratch& w, int lane, int p,
+                                           const Scratch& w, int lane, int ext,
                                            int s, VmaxAt vmax_at) {
   const float log_max = logf(MAX_F);
   for (int j = lane; j < s; j += WARP) w.lx[j] = safe_log(w.x0[j]);
   __syncwarp();
-  for (int k = lane; k < p; k += WARP) {
+  for (int k = lane; k < ext; k += WARP) {
     const int16_t* nf = cp.Nf + (size_t)k * cp.ld_nf;
     const int16_t* nb = cp.Nb + (size_t)k * cp.ld_nb;
     const int16_t* ar = cp.A + (size_t)k * cp.ld_a;
@@ -392,16 +506,16 @@ __device__ __forceinline__ void velocities(const CellPtrs& cp,
 // ---- negative guard (_negative_factors): W = V * F_min, Fe = 1 ----
 __device__ __forceinline__ void negative_guard(const CellPtrs& cp,
                                                const Scratch& w, int lane,
-                                               int p, int s) {
+                                               int ext, int s) {
   for (int j = lane; j < s; j += WARP) {
     float removed = 0.f;
-    for (int k = 0; k < p; ++k)
+    for (int k = 0; k < ext; ++k)
       removed += max0_nan(-(i2f(cp.N[(size_t)k * cp.ld_n + j]) * w.V[k]));
     const float f = w.x0[j] / removed;
     w.fneg[j] = f > 1.f ? 1.f : f;
   }
   __syncwarp();
-  for (int k = lane; k < p; k += WARP) {
+  for (int k = lane; k < ext; k += WARP) {
     const int16_t* n = cp.N + (size_t)k * cp.ld_n;
     const float v = w.V[k];
     float m = 1.f;
@@ -418,10 +532,10 @@ __device__ __forceinline__ void negative_guard(const CellPtrs& cp,
 // ---- X1 = X0 + sum_p N*W, clamped at 0 (_weighted_dx) ----
 __device__ __forceinline__ void signal_update(const CellPtrs& cp,
                                               const Scratch& w, int lane,
-                                              int p, int s) {
+                                              int ext, int s) {
   for (int j = lane; j < s; j += WARP) {
     float acc = 0.f;
-    for (int k = 0; k < p; ++k)
+    for (int k = 0; k < ext; ++k)
       acc += i2f(cp.N[(size_t)k * cp.ld_n + j]) * w.W[k];
     const float x = w.x0[j] + acc;
     w.x1[j] = x < 0.f ? 0.f : x;
@@ -435,14 +549,14 @@ __device__ __forceinline__ void signal_update(const CellPtrs& cp,
 // part), and the stop is CTA-uniform, so no thread leaves early.
 __device__ __forceinline__ void equilibrium_correction(const CellPtrs& cp,
                                                        const Scratch& w,
-                                                       int lane, int p,
+                                                       int lane, int ext,
                                                        int s) {
   const float incs[4] = {0.5f, 0.25f, 0.125f, 0.0625f};
   for (int it = 0; it < 4; ++it) {
     for (int j = lane; j < s; j += WARP) w.lx[j] = safe_log(w.x1[j]);
     __syncwarp();
     int any_adj = 0;
-    for (int k = lane; k < p; k += WARP) {
+    for (int k = lane; k < ext; k += WARP) {
       const int16_t* nf = cp.Nf + (size_t)k * cp.ld_nf;
       const int16_t* nb = cp.Nb + (size_t)k * cp.ld_nb;
       const RowSums t = tree_sum<RowSums>(s, [&](int j) {
@@ -468,7 +582,7 @@ __device__ __forceinline__ void equilibrium_correction(const CellPtrs& cp,
     // the tile's early-stop vote; a barrier for all 8 warps
     if (!__syncthreads_or(any_adj)) break;
     const float inc = incs[it];
-    for (int k = lane; k < p; k += WARP) {
+    for (int k = lane; k < ext; k += WARP) {
       const int flags = w.flags[k];
       float fe = w.Fe[k];
       if (flags & 2) fe -= inc;
@@ -480,7 +594,7 @@ __device__ __forceinline__ void equilibrium_correction(const CellPtrs& cp,
     __syncwarp();
     for (int j = lane; j < s; j += WARP) {
       float acc = 0.f;
-      for (int k = 0; k < p; ++k)
+      for (int k = 0; k < ext; ++k)
         acc += i2f(cp.N[(size_t)k * cp.ld_n + j]) * w.WF[k];
       const float x = w.x0[j] + acc;
       w.x1[j] = x < 0.f ? 0.f : x;
@@ -492,13 +606,13 @@ __device__ __forceinline__ void equilibrium_correction(const CellPtrs& cp,
 // ---- one trim pass (_integrate_part at max(Vmax * trim, 0)) ----
 // x0 in, x0 out; reaches the tile's vote, so every thread calls it.
 __device__ __forceinline__ void trim_pass(const CellPtrs& cp,
-                                          const Scratch& w, int lane, int p,
+                                          const Scratch& w, int lane, int ext,
                                           int s, float trim) {
-  velocities(cp, w, lane, p, s,
+  velocities(cp, w, lane, ext, s,
              [&](int k) { return max0_nan(cp.Vmax[k] * trim); });
-  negative_guard(cp, w, lane, p, s);
-  signal_update(cp, w, lane, p, s);
-  equilibrium_correction(cp, w, lane, p, s);
+  negative_guard(cp, w, lane, ext, s);
+  signal_update(cp, w, lane, ext, s);
+  equilibrium_correction(cp, w, lane, ext, s);
   for (int j = lane; j < s; j += WARP) w.x0[j] = w.x1[j];
   __syncwarp();
 }

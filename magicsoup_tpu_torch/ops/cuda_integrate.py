@@ -30,6 +30,15 @@ group's own launch computes.  It counts in :data:`grouped_launches`, one
 per launch: one for the groups on the resident route and one for the
 others, each of at most :data:`MAX_GROUPS` groups.
 
+Each warp walks its cell's own proteins: the kernel scans the cell's
+parameter rows for its extent, one past its last protein slot that is not
+inert (``csrc/integrate_body.cuh``), and its passes walk only the slots
+below it; the output is that of the walk over all p slots, bit for bit.
+Every launch adds the sum of the cells' extents and the slots its tiles
+walk (``TILE_C`` times each tile's largest extent) to the device counters
+:data:`SLOT_COUNTERS` (:func:`~magicsoup_tpu_torch.telemetry.recorder.device_counter`),
+read where the telemetry's counter totals are.
+
 The kernel stages each tile's parameters in shared memory for the whole
 step.  :func:`plan` chooses, per (p, s), which parameter groups are
 resident and how many bytes a CTA takes; the C side computes the same
@@ -72,6 +81,10 @@ grouped_launches = 0
 
 #: groups one grouped launch takes (``MAX_GROUPS`` in ``csrc/integrate.cu``)
 MAX_GROUPS = 16
+
+#: the kernel's device counters: the cells' protein extents and the slots
+#: the tiles walk, summed over launches
+SLOT_COUNTERS = ("integrator.live_slots", "integrator.walked_slots")
 
 SRC = Path(__file__).resolve().parents[1] / "csrc" / "integrate.cu"
 NVCC_FLAGS = [
@@ -249,13 +262,13 @@ def _lib():
             lib = ctypes.CDLL(str(build()))
             vp, ci = ctypes.c_void_p, ctypes.c_int
             lib.ms_integrate_signals.argtypes = (
-                [vp] * 11 + [ci] * 4 + [ctypes.c_longlong, ci, vp]
+                [vp] * 11 + [ci] * 4 + [ctypes.c_longlong, ci, vp, vp]
             )
             lib.ms_integrate_signals.restype = ci
             lib.ms_integrate_smem_bytes.argtypes = [ci, ci, ci]
             lib.ms_integrate_smem_bytes.restype = ctypes.c_size_t
             lib.ms_integrate_signals_grouped.argtypes = [
-                ci, vp, vp, vp, ctypes.POINTER(ci), vp
+                ci, vp, vp, vp, vp, ctypes.POINTER(ci), vp
             ]
             lib.ms_integrate_signals_grouped.restype = ci
             lib.ms_max_groups.restype = ci
@@ -335,6 +348,14 @@ def launch_plan(p: int, s: int, limit: int) -> Plan:
     return got
 
 
+def _slot_counters(device: torch.device) -> torch.Tensor:
+    """The device counters of :data:`SLOT_COUNTERS` that a launch on
+    ``device`` adds to now."""
+    from magicsoup_tpu_torch.telemetry import recorder
+
+    return recorder.device_counter(SLOT_COUNTERS, device)
+
+
 def _launch(X: torch.Tensor, params: CellParams, pstride: int) -> torch.Tensor:
     """Launch the kernel on ``X`` ``(B, c, s)`` (checked by :func:`_check`,
     whose world stride ``pstride`` is); the output tensor."""
@@ -365,6 +386,7 @@ def _launch(X: torch.Tensor, params: CellParams, pstride: int) -> torch.Tensor:
             s,
             pstride,
             how.mask,
+            _slot_counters(X.device).data_ptr(),
             stream,
         )
     if err != 0:
@@ -504,7 +526,8 @@ def integrate_signals_cuda_grouped(Xs, params_list) -> list:
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.ms_integrate_signals_grouped(
-            args.n, args.ptrs, args.dims, args.pstrides, ctypes.byref(n_launched), stream
+            args.n, args.ptrs, args.dims, args.pstrides, _slot_counters(dev).data_ptr(),
+            ctypes.byref(n_launched), stream,
         )
     grouped_launches += n_launched.value
     if err != 0:

@@ -25,6 +25,10 @@ The zero-sync telemetry recorder.  Counterpart of
   the device trace.  :func:`count` adds to a counter at the same
   boundaries; :func:`span_totals` and :func:`counter_totals` are the
   process-wide totals, and those of the latest profiled window.
+- **Device counters.**  A kernel adds to counters in device memory
+  (:func:`device_counter`, one accumulator per window); nothing is read
+  back during a step: :func:`counter_totals` synchronizes their devices
+  and folds them in.
 
 Usage::
 
@@ -101,18 +105,23 @@ _span_totals: dict[str, dict[str, list]] = {"all": {}, "profiled": {}}
 _counter_totals: dict[str, dict[str, int]] = {"all": {}, "profiled": {}}
 _profiling = torch._C._autograd._profiler_enabled
 _profiled_window = False  # whether the last span or count saw a profiler
+_window = 0  # the number of the latest profiled window
+# (names, device, window or None) -> [int64 tensor on the device, the
+# values already folded into _counter_totals]; see device_counter
+_device_counts: dict[tuple, list] = {}
 
 
 def _profiled() -> bool:
     """Whether a profiler records now; the first span or count of a
     profiled window clears the profiled totals of the last one."""
-    global _profiled_window
+    global _profiled_window, _window
     on = _profiling()
     if on != _profiled_window:
         with _totals_lock:
             if on and not _profiled_window:
                 _span_totals["profiled"].clear()
                 _counter_totals["profiled"].clear()
+                _window += 1
             _profiled_window = on
     return on
 
@@ -213,9 +222,48 @@ def span_totals(profiled: bool = False) -> dict[str, tuple[int, float, float]]:
         return {k: (v[0], v[1], v[2]) for k, v in table.items()}
 
 
+def device_counter(names: tuple[str, ...], device: torch.device) -> torch.Tensor:
+    """An int64 tensor of ``len(names)`` on ``device``, for a kernel to
+    add the counters ``names`` into without a synchronization: while a
+    profiler records, the profiled window's own, else one for the rest.
+    :func:`counter_totals` folds what they hold into its totals."""
+    key = (names, device, _window if _profiled() else None)
+    with _totals_lock:
+        rec = _device_counts.get(key)
+        if rec is None:
+            zeros = torch.zeros(len(names), dtype=torch.int64, device=device)
+            rec = _device_counts[key] = [zeros, [0] * len(names)]
+        return rec[0]
+
+
+def _fold_device_counts() -> None:
+    """Add what the device counters gained since the last fold to the
+    totals (to the profiled ones for the latest profiled window's); waits
+    for their devices first.  A past window's counter gets no more adds,
+    so it is dropped once folded."""
+    with _totals_lock:
+        items = list(_device_counts.items())
+    for dev in {key[1] for key, _ in items if key[1].type == "cuda"}:
+        torch.cuda.synchronize(dev)
+    with _totals_lock:
+        for key, rec in items:
+            names, _, window = key
+            now = rec[0].tolist()
+            tables = ("all", "profiled") if window == _window else ("all",)
+            for name, new, old in zip(names, now, rec[1]):
+                for table in tables if new != old else ():
+                    _counter_totals[table][name] = _counter_totals[table].get(name, 0) + new - old
+            rec[1] = now
+            if window is not None and window != _window:
+                del _device_counts[key]
+
+
 def counter_totals(profiled: bool = False) -> dict[str, int]:
-    """Process-wide ``{name: sum}`` of every :func:`count`; with
-    ``profiled``, of those made in the latest profiled window."""
+    """Process-wide ``{name: sum}`` of every :func:`count` and device
+    counter; with ``profiled``, of those made in the latest profiled
+    window.  Synchronizes the devices that hold device counters."""
+    if _device_counts:
+        _fold_device_counts()
     with _totals_lock:
         return dict(_counter_totals["profiled" if profiled else "all"])
 

@@ -1066,8 +1066,10 @@ class World:
         integrator's calls, its kernel launches, and the rows and
         protein slots it was handed (``integrator.*``); where the kernel
         launched, also its parameter bytes in the kernel's layout, those
-        its launch plan stages in shared memory, and its launches by route
-        (:func:`~magicsoup_tpu_torch.ops.cuda_integrate.route_bytes`)."""
+        its launch plan stages in shared memory, its launches by route
+        (:func:`~magicsoup_tpu_torch.ops.cuda_integrate.route_bytes`), and
+        the protein slots it was handed (``integrator.slots``, rows x p;
+        the kernel counts those it walks on the device)."""
         if self.n_cells == 0:
             return
         has_col = prefetch_column is not None
@@ -1104,6 +1106,7 @@ class World:
         _telemetry.count("integrator.param_bytes", launched * param)
         _telemetry.count("integrator.staged_bytes", launched * staged)
         _telemetry.count(f"integrator.{how.route}_launches", launched)
+        _telemetry.count("integrator.slots", launched * q * p)
 
     def _activity_at(self, q: int) -> tuple[torch.Tensor, torch.Tensor]:
         """The activity's new ``(molecule_map, cell_molecules)`` over the

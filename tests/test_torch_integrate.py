@@ -134,6 +134,36 @@ def test_edge_cases_match_pallas_interpret():
     assert np.isfinite(out[0]).all()
 
 
+def _pad_inert(d: dict, p: int, seed: int) -> dict:
+    """The parameters ``d`` with their protein axis padded to ``p`` slots
+    that are inert (integer rows N, Nf and Nb zero, a finite Vmax, no
+    negative Kmr): each with a random A, Vmax, Ke, Kmf, Kmb and Kmr."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    for k, v in d.items():
+        shape = (v.shape[0], p - v.shape[1]) + v.shape[2:]
+        if k in ("N", "Nf", "Nb"):
+            pad = np.zeros(shape, v.dtype)
+        elif k == "A":
+            pad = rng.integers(-2, 3, shape).astype(v.dtype)
+        else:
+            pad = rng.uniform(0.1, 60, shape).astype(v.dtype)
+        out[k] = np.concatenate([v, pad], axis=1)
+    return out
+
+
+@pytest.mark.parametrize("which", ["random", "edges", "p64-s82"])
+def test_plain_tiled_ignores_inert_slots(which):
+    # what the kernel's extent rests on, in its plain version: slots that
+    # are inert change no bit, whatever they hold besides
+    X, d = {"random": lambda: _inputs(seed=4), "edges": _edge_inputs,
+            "p64-s82": lambda: _inputs(c=16, p=64, s=82, seed=5)}[which]()
+    p = d["Ke"].shape[1]
+    want = ci.integrate_signals_tiled(*_one_world(X, d), ci.TILE_C)
+    got = ci.integrate_signals_tiled(*_one_world(X, _pad_inert(d, 4 * p, seed=p)), ci.TILE_C)
+    assert torch.equal(got, want)
+
+
 def test_log_space_edge_semantics():
     # exp of a huge negative sum is exactly 0; overflow saturates to MAX
     from magicsoup_tpu_torch.ops import integrate as ti

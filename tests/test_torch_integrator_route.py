@@ -8,7 +8,13 @@ shape:
 - ``max_proteins`` is the largest power-of-two protein count whose
   scratch fits, and ``SharedMemoryLimitError`` names it;
 - the CPU path counts no route; on the card a co2_fixing world's step
-  counts what ``route_bytes`` gives at its (p, s) (marked ``cuda``).
+  counts what ``route_bytes`` gives at its (p, s), its protein slots
+  (rows x p) and, on the device, those its tiles walk (marked ``cuda``);
+- on the card the kernel walks each cell's own proteins: on the ragged
+  states of ``test_torch_kernel_emulation.py`` (solo, B = 3, grouped)
+  and on a world's own state it is bit-equal to itself on the same cells
+  with the protein axis cut to what they hold, or padded with empty
+  slots, and its slot counters are the host's sums (marked ``cuda``).
 """
 import importlib
 import random
@@ -121,3 +127,64 @@ def test_card_step_counts_its_route(monkeypatch):
     assert delta["integrator.staged_bytes"] == staged
     assert delta[f"integrator.{how.route}_launches"] == 1
     assert sum(delta.get(k, 0) for k in ROUTE[2:]) == 1
+    slots = delta["integrator.rows"] * p
+    assert delta["integrator.slots"] == slots
+    assert 0 < delta["integrator.live_slots"] <= delta["integrator.walked_slots"] <= slots
+
+
+def _card(X, params):
+    return X.cuda(), ci.CellParams(*(t.cuda() for t in params))
+
+
+def _slot_delta(fn):
+    """``fn()`` and what it added to the kernel's slot counters."""
+    before = telemetry.counter_totals()
+    out = fn()
+    after = telemetry.counter_totals()
+    return out, [after.get(k, 0) - before.get(k, 0) for k in ci.SLOT_COUNTERS]
+
+
+@pytest.mark.cuda
+def test_card_kernel_walks_each_cells_own_proteins():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the integrator kernel has no CPU mode")
+    from test_torch_kernel_emulation import RAGGED, _bits, _cut, _ragged, _ragged_stack, _slots
+
+    for p, s, cut in RAGGED:
+        X, params, ext = _ragged(40, p, s, cut, seed=p + s)
+        X, params = _card(X, params)
+        out, slots = _slot_delta(lambda: ci.integrate_signals_cuda(X, params))
+        want = ci.integrate_signals_cuda(X, _cut(params, cut))
+        assert torch.equal(_bits(out), _bits(want)), (p, s)
+        assert slots == _slots(ext), (p, s)
+        assert torch.equal(want[0, 8:16], X[0, 8:16])
+        assert torch.isnan(want[0, 18]).any() and not torch.isnan(want[0, :18]).any()
+    groups = [_ragged_stack(32, 28, 8, seed=7), _ragged(40, 64, 82, 8, seed=8)]
+    groups = [(*_card(X, params), ext) for X, params, ext in groups]
+    for X, params, ext in groups:  # B = 3, then a world on the partial route
+        out, slots = _slot_delta(lambda: ci.integrate_signals_cuda(X, params))
+        assert torch.equal(_bits(out), _bits(ci.integrate_signals_cuda(X, _cut(params, 8))))
+        assert slots == _slots(ext)
+    outs, slots = _slot_delta(lambda: ci.integrate_signals_cuda_grouped(
+        [X for X, _, _ in groups], [params for _, params, _ in groups]))
+    assert slots == [sum(v) for v in zip(*(_slots(ext) for _, _, ext in groups))]
+    for (X, params, _), out in zip(groups, outs):
+        assert torch.equal(_bits(out), _bits(ci.integrate_signals_cuda(X, _cut(params, 8))))
+
+
+@pytest.mark.cuda
+def test_card_kernel_on_a_worlds_state_ignores_empty_slots(monkeypatch):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the integrator kernel has no CPU mode")
+    w = _co2_world("cuda", 3000, 1024, monkeypatch)
+    X, params = w.integrator_inputs()
+    X, params = X[None], ci.CellParams(*(t[None] for t in params))
+    p = params.Ke.shape[-1]
+    held = ((params.N != 0) | (params.Nf != 0) | (params.Nb != 0)).any(-1)
+    widest = int(torch.where(held, torch.arange(1, p + 1, device="cuda"), 0).max())
+    cut = 1 << (widest - 1).bit_length()
+    wide = ci.CellParams(*(torch.cat([t, torch.zeros_like(t)], 2) for t in params))
+    out = ci.integrate_signals_cuda(X, params)
+    assert cut < 2 * p
+    for other in (ci.CellParams(*(t[:, :, :cut].contiguous() for t in params)), wide):
+        assert torch.equal(out, ci.integrate_signals_cuda(X, other))

@@ -7,8 +7,13 @@ for the CUDA runtime (``torch_data/cuda_emu/cuda_runtime.h``: each CTA
 runs as one thread per CUDA thread, with real barriers) and held against
 their plain versions on the CPU.  So the kernels' logic -- the staging of
 a tile's parameters, the launch plan's layouts, both lane mappings, the
-tile's vote, the world stride -- is tested without a card, and the C
-side's shared-memory bytes against the Python launch plan's.
+tile's vote, the world stride, each cell's protein extent -- is tested
+without a card, and the C side's shared-memory bytes against the Python
+launch plan's.  On a ragged state (cells of 0 to a few proteins in a wide
+protein axis, holes, regulation-only slots, a trailing slot with a NaN
+Vmax) every entry of the integrator is bit-equal to itself on the same
+cells with the axis cut to what they hold, and its slot counters are the
+host's sums of the cells' extents and of each tile's widest.
 
 glibc's expf/logf round differently from the card's, so the outputs are
 held to the fast contract (the ladder's rungs to their own contracts);
@@ -77,11 +82,11 @@ def libs(tmp_path_factory):
     out = tmp_path_factory.mktemp("cuda_emu")
     integrate, bisect = _build(ci.SRC, out), _build(cb.SRC, out)
     vp, cint, size = ctypes.c_void_p, ctypes.c_int, ctypes.c_size_t
-    integrate.ms_integrate_signals.argtypes = [vp] * 11 + [cint] * 4 + [ctypes.c_longlong, cint, vp]
+    integrate.ms_integrate_signals.argtypes = [vp] * 11 + [cint] * 4 + [ctypes.c_longlong, cint, vp, vp]
     integrate.ms_integrate_signals.restype = cint
     integrate.ms_integrate_smem_bytes.argtypes = [cint] * 3
     integrate.ms_integrate_smem_bytes.restype = size
-    integrate.ms_integrate_signals_grouped.argtypes = [cint, vp, vp, vp, ctypes.POINTER(cint), vp]
+    integrate.ms_integrate_signals_grouped.argtypes = [cint, vp, vp, vp, vp, ctypes.POINTER(cint), vp]
     integrate.ms_integrate_signals_grouped.restype = cint
     bisect.ms_bisect_rung.argtypes = [cint] + [vp] * 11 + [cint] * 4 + [vp]
     bisect.ms_bisect_rung.restype = cint
@@ -118,15 +123,70 @@ def _inputs(c: int, p: int, s: int, seed: int):
     return torch.from_numpy(X)[None], CellParams(*(t[None] for t in params_from_numpy(d, "cpu")))
 
 
-def _run(lib, X, params, mask: int) -> torch.Tensor:
+def _run(lib, X, params, mask: int, slots=None) -> torch.Tensor:
+    """The emulated kernel; ``slots``, an int64 tensor of 2, gets its
+    slot counters."""
     B, c, s = X.shape
     out = torch.empty_like(X)
     err = lib.ms_integrate_signals(
         X.data_ptr(), *(t.data_ptr() for t in params), out.data_ptr(),
-        B, c, params.Ke.shape[-1], s, ci._check(X, params), mask, None,
+        B, c, params.Ke.shape[-1], s, ci._check(X, params), mask,
+        None if slots is None else slots.data_ptr(), None,
     )
     assert err == 0
     return out
+
+
+def _ragged(c: int, p: int, s: int, cut: int, seed: int):
+    """``_inputs`` with each cell's proteins cut to a few, in a protein
+    axis of ``p`` whose slots from ``cut`` on are all inert, and the
+    cells' extents (one past the last slot that is not inert) as the host
+    reads them.  Tile 0 holds extents 0, 1 and 3 around a cell of extent
+    ``cut``; tile 1 is dead rows; tile 2 a hole (an inert slot below a live
+    one), a regulation-only slot past the last live one, a trailing slot
+    with a NaN Vmax and zero integer rows (it must be walked) and one with
+    a negative Kmr under A != 0 (walked too); the other tiles draw their
+    extents.  Each inert slot keeps a random A, Vmax, Ke, Kmf, Kmb and a
+    positive Kmr."""
+    rng = np.random.default_rng(seed)
+    X, params = _inputs(c, p, s, seed)
+    d = {k: v[0].numpy().copy() for k, v in params._asdict().items()}
+    rows = rng.integers(0, cut + 1, c)  # each cell's slots with integer rows
+    rows[:8] = [0, 1, 3, cut, 2, 1, 0, cut - 1]
+    rows[8:16] = 0  # dead rows: _inputs zeroes all their parameters
+    rows[16:20] = [4, 2, 2, 2]
+    n0 = d["N"][..., 0]
+    n0[n0 == 0] = 1  # so every slot below a cell's rows is live
+    for k in ("N", "Nf", "Nb"):
+        d[k][np.arange(p) >= rows[:, None]] = 0
+        d[k][16, 2] = 0  # a hole below cell 16's live slot 3
+    d["A"][17, 2] = 2  # a regulation-only slot: inert
+    d["Vmax"][18, 3] = np.nan
+    d["A"][19, 2, 1], d["Kmr"][19, 2, 1] = -1, -0.5
+    live = ((d["N"] != 0) | (d["Nf"] != 0) | (d["Nb"] != 0)).any(-1)
+    live |= ~np.isfinite(d["Vmax"]) | ((d["A"] != 0) & (d["Kmr"] < 0)).any(-1)
+    ext = np.where(live.any(1), p - np.argmax(live[:, ::-1], 1), 0)
+    assert list(ext[:8]) == list(rows[:8]) and list(ext[16:20]) == [4, 2, 4, 3]
+    assert ext.max() == cut and not ext[8:16].any()
+    return X, CellParams(*(torch.from_numpy(v)[None] for v in d.values())), ext
+
+
+def _cut(params: CellParams, p: int) -> CellParams:
+    """The parameters with the protein axis cut to its first ``p`` slots."""
+    def first(t):
+        return t[:, :, :p].contiguous()
+
+    return CellParams(*(first(t) for t in params))
+
+
+def _slots(ext: np.ndarray) -> list[int]:
+    """The slot counters of a launch over cells of extents ``ext``: their
+    sum, and TILE_C times each tile's largest."""
+    return [int(ext.sum()), int(ci.TILE_C * ext.reshape(-1, ci.TILE_C).max(1).sum())]
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    return t.view(torch.int32)
 
 
 def _assert_fast_contract(out: torch.Tensor, ref: torch.Tensor) -> None:
@@ -174,13 +234,14 @@ def test_emulated_worlds_equal_their_own_launch(libs):
         assert torch.equal(solo[0], out[w])
 
 
-def _run_grouped(lib, Xs, params_list, masks) -> tuple[list, int]:
+def _run_grouped(lib, Xs, params_list, masks, slots=None) -> tuple[list, int]:
     outs = [torch.empty_like(X) for X in Xs]
     args = ci.grouped_args(Xs, params_list, outs, masks,
                            [ci._check(X, p) for X, p in zip(Xs, params_list)])
     launched = ctypes.c_int(-1)
     assert lib.ms_integrate_signals_grouped(
-        args.n, args.ptrs, args.dims, args.pstrides, ctypes.byref(launched), None) == 0
+        args.n, args.ptrs, args.dims, args.pstrides,
+        None if slots is None else slots.data_ptr(), ctypes.byref(launched), None) == 0
     return outs, launched.value
 
 
@@ -212,6 +273,69 @@ def test_emulated_grouped_launch_equals_each_groups_own_launch(libs):
     assert launched == 2
     for (X, params), out in zip(many, outs):
         assert torch.equal(out, _run(libs[0], X, params, ci.ALL_RESIDENT))
+
+
+#: (p, s, the cut): Wood-Ljungdahl's 28 signals on the resident route,
+#: co2_fixing's 82 on the partial route, and an odd p * s, whose extent
+#: scan reads single entries
+RAGGED = [(32, 28, 8), (64, 82, 8), (9, 7, 4)]
+
+
+@pytest.mark.parametrize("p,s,cut", RAGGED, ids=[f"p{p}-s{s}" for p, s, _ in RAGGED])
+def test_emulated_kernel_walks_each_cells_own_proteins(libs, p, s, cut):
+    X, params, ext = _ragged(40, p, s, cut, seed=p + s)
+    short = _cut(params, cut)
+    masks = [m for m in range(ci.ALL_RESIDENT + 1) if ci.smem_bytes(p, s, m) <= ci.SMEM_LIMIT]
+    assert ci.plan(p, s).mask in masks and len(masks) > 8
+    want = _run(libs[0], X, short, ci.plan(cut, s).mask)
+    for mask in masks:
+        slots = torch.zeros(2, dtype=torch.int64)
+        out = _run(libs[0], X, params, mask, slots)
+        assert torch.equal(_bits(out), _bits(want)), mask  # the NaN cell's bits too
+        assert slots.tolist() == _slots(ext), mask
+    assert torch.isnan(want[0, 18]).any() and not torch.isnan(want[0, :18]).any()
+    assert torch.equal(want[0, 8:16], X[0, 8:16])  # dead rows are inert
+    _assert_fast_contract(want[:, :16], ci.integrate_signals_tiled(X, params, ci.TILE_C)[:, :16])
+    # no counters: a null pointer, and the same bits
+    assert torch.equal(_bits(_run(libs[0], X, params, ci.plan(p, s).mask)), _bits(want))
+
+
+def _ragged_stack(p: int, s: int, cut: int, seed: int):
+    """Three ragged worlds as the 24-row prefixes of a 40-row stack."""
+    worlds = [_ragged(40, p, s, cut, seed=seed + w) for w in range(3)]
+    X = torch.cat([x[:, :24] for x, _, _ in worlds]).contiguous()
+    params = CellParams(*(torch.cat(ts)[:, :24] for ts in zip(*(q for _, q, _ in worlds))))
+    return X, params, np.concatenate([e[:24] for _, _, e in worlds])
+
+
+@pytest.mark.parametrize("p,s,cut", RAGGED[:2], ids=[f"p{p}-s{s}" for p, s, _ in RAGGED[:2]])
+def test_emulated_worlds_walk_each_cells_own_proteins(libs, p, s, cut):
+    X, params, ext = _ragged_stack(p, s, cut, seed=3)
+    assert ci._check(X, params) == 40
+    want = _run(libs[0], X, _cut(params, cut), ci.plan(cut, s).mask)
+    for mask in sorted({ci.plan(p, s).mask, 0, ci.ALL_RESIDENT}):
+        if ci.smem_bytes(p, s, mask) > ci.SMEM_LIMIT:
+            continue
+        slots = torch.zeros(2, dtype=torch.int64)
+        out = _run(libs[0], X, params, mask, slots)
+        assert torch.equal(_bits(out), _bits(want)), mask
+        assert slots.tolist() == _slots(ext), mask
+
+
+def test_emulated_grouped_launch_walks_each_cells_own_proteins(libs):
+    # a B = 3 ragged stack on the resident route and a ragged world on
+    # the partial route at 82 signals, in one grouped call
+    Xa, pa, ea = _ragged_stack(32, 28, 8, seed=7)
+    Xb, pb, eb = _ragged(40, 64, 82, 8, seed=8)
+    masks = [ci.plan(32, 28).mask, ci.plan(64, 82).mask]
+    assert masks[1] not in (0, ci.ALL_RESIDENT)  # partial
+    slots = torch.zeros(2, dtype=torch.int64)
+    outs, launched = _run_grouped(libs[0], [Xa, Xb], [pa, pb], masks, slots)
+    assert launched == 2
+    assert slots.tolist() == [a + b for a, b in zip(_slots(ea), _slots(eb))]
+    for X, params, out, s in ((Xa, pa, outs[0], 28), (Xb, pb, outs[1], 82)):
+        want = _run(libs[0], X, _cut(params, 8), ci.plan(8, s).mask)
+        assert torch.equal(_bits(out), _bits(want))
 
 
 def _rung_masks(rung: int, p: int, s: int) -> list[int]:

@@ -7,7 +7,8 @@ the classic ``World``, on the CPU:
   thread, and to none from another thread;
 - with no profiler recording no ``record_function`` is entered; under a
   CPU ``torch.profiler`` every span is a ``user_annotation``, and the
-  profiled totals are those of the latest profiled window;
+  profiled totals are those of the latest profiled window, device
+  counters folded in when the totals are read;
 - a sequence of phases that an exception left open is closed by the next;
 - one step of the ``workload.sim_step`` schedule opens exactly the
   World's span names, translation and assembly nested in spawning,
@@ -29,6 +30,7 @@ import magicsoup_tpu_torch as mt
 from magicsoup_tpu_torch import telemetry
 from magicsoup_tpu_torch.check.differential import state_digest
 from magicsoup_tpu_torch.examples.wood_ljungdahl import CHEMISTRY
+from magicsoup_tpu_torch.telemetry import recorder
 from magicsoup_tpu_torch.workload import sim_step
 
 #: the spans of the classic World's calls
@@ -165,6 +167,34 @@ def test_spans_are_user_annotations_under_a_profiler(tmp_path):
             pass
     assert set(telemetry.span_totals(profiled=True)) == {"again"}
     assert telemetry.counter_totals(profiled=True) == {}
+
+
+def test_device_counters_fold_into_the_totals():
+    # a kernel adds to a device counter; the totals fold it in when read,
+    # the profiled window's own counter into the window's totals
+    names, cpu = ("test.device_a", "test.device_b"), torch.device("cpu")
+    before = telemetry.counter_totals()
+    acc = recorder.device_counter(names, cpu)
+    acc += torch.tensor([3, 5])
+    assert recorder.device_counter(names, cpu) is acc
+    after = telemetry.counter_totals()
+    assert [after[n] - before.get(n, 0) for n in names] == [3, 5]
+    assert telemetry.counter_totals() == after  # folded once
+    with profile(activities=[ProfilerActivity.CPU]):
+        telemetry.count("traced")
+        inside = recorder.device_counter(names, cpu)
+        assert inside is not acc
+        inside += torch.tensor([7, 0])
+    acc += torch.tensor([1, 1])  # after the window: not the window's
+    assert telemetry.counter_totals(profiled=True) == {"traced": 1, "test.device_a": 7}
+    total = telemetry.counter_totals()
+    assert [total[n] - before.get(n, 0) for n in names] == [11, 6]
+    telemetry.count("between")
+    with profile(activities=[ProfilerActivity.CPU]):
+        telemetry.count("again")
+    assert telemetry.counter_totals(profiled=True) == {"again": 1}
+    assert telemetry.counter_totals() == {**total, "between": total.get("between", 0) + 1,
+                                          "again": total.get("again", 0) + 1}
 
 
 def test_a_sequence_left_open_is_closed_by_the_next():

@@ -9,6 +9,7 @@
 #include <math.h>
 #include <xmmintrin.h>
 
+#include <algorithm>
 #include <atomic>
 #include <barrier>
 #include <cmath>
@@ -173,6 +174,21 @@ inline int __any_sync(unsigned, int v) {
   for (int i = 0; i < 32; ++i) any |= emu_lanes_i[(t & ~31) | i];
   __syncwarp();
   return any;
+}
+
+inline int __reduce_max_sync(unsigned, int v) {
+  const int t = threadIdx.x;
+  __syncwarp();
+  emu_lanes_i[t] = v;
+  __syncwarp();
+  int m = emu_lanes_i[t & ~31];
+  for (int i = 1; i < 32; ++i) m = std::max(m, emu_lanes_i[(t & ~31) | i]);
+  __syncwarp();
+  return m;
+}
+
+inline unsigned long long atomicAdd(unsigned long long* a, unsigned long long v) {
+  return __atomic_fetch_add(a, v, __ATOMIC_RELAXED);
 }
 
 // kernel<<<grid, threads, smem, stream>>>(args...) as the test's source
