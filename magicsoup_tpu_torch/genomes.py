@@ -58,7 +58,13 @@ from magicsoup_tpu_torch.ops import detmath
 from magicsoup_tpu_torch.ops import prng as _prng
 from magicsoup_tpu_torch.ops.params import pad_idxs, pad_pow2
 from magicsoup_tpu_torch.parallel.tiled import sharded_attr
-from magicsoup_tpu_torch.util import fetch_host, resolve_device, restored_device, sanctioned_sync
+from magicsoup_tpu_torch.util import (
+    fetch_host,
+    resolve_device,
+    restored_device,
+    sanctioned_sync,
+    to_device,
+)
 
 PAD = 4  # int8 fill value outside a row's live region (never a base)
 TOKEN_NTS = "TCGA"  # token code i <-> TOKEN_NTS[i]; the engine's code
@@ -85,15 +91,6 @@ def _download(t: torch.Tensor) -> np.ndarray:
         host.copy_(t)
     note_fetch(host.numpy().nbytes)
     return host.numpy()
-
-
-def _upload(arr: np.ndarray, device: torch.device) -> torch.Tensor:
-    """A host operand on ``device`` (through pinned memory and a
-    non-blocking copy on a CUDA device)."""
-    t = torch.from_numpy(np.array(arr, copy=True))
-    if device.type == "cuda":
-        return t.pin_memory().to(device, non_blocking=True)
-    return t
 
 
 # ------------------------------------------------------------------ #
@@ -349,7 +346,7 @@ def point_mutations_tokens(
     if live is None:
         live = torch.ones(tokens.shape[0], dtype=torch.bool, device=dev)
     elif not isinstance(live, torch.Tensor):
-        live = _upload(np.asarray(live, dtype=bool), dev)
+        live = to_device(np.asarray(live, dtype=bool), dev)
     return _point_mutations_program(
         tokens,
         lengths,
@@ -391,9 +388,9 @@ def recombinations_tokens(
     return _recombinations_program(
         tokens,
         lengths,
-        _upload(a, dev),
-        _upload(b, dev),
-        _upload(valid, dev),
+        to_device(a, dev),
+        to_device(b, dev),
+        to_device(valid, dev),
         _as_key(seed, dev),
         _scalar(log1mp, dev),
         det=det,
@@ -447,7 +444,7 @@ def point_mutations_strings(
     live[: len(seqs)] = True
     changed, host_t, host_l = _host_rows(
         *point_mutations_tokens(
-            _upload(tokens, dev), _upload(lengths, dev), p=p, p_indel=p_indel,
+            to_device(tokens, dev), to_device(lengths, dev), p=p, p_indel=p_indel,
             p_del=p_del, seed=seed, live=live, det=det,
         )
     )
@@ -480,7 +477,7 @@ def recombinations_indexed_strings(
     tokens, lengths = _encode_at_shape(seqs, cap, length_cap)
     changed, host_t, host_l = _host_rows(
         *recombinations_tokens(
-            _upload(tokens, dev), _upload(lengths, dev), pairs, p=p, seed=seed, det=det
+            to_device(tokens, dev), to_device(lengths, dev), pairs, p=p, seed=seed, det=det
         )
     )
 
@@ -663,8 +660,8 @@ class GenomeStore:
         tokens[:n, : rows.shape[1]] = rows
         lengths = np.zeros(self.capacity, dtype=np.int32)
         lengths[:n] = lens
-        self.tokens = _upload(tokens, self.device)
-        self.lengths = _upload(lengths, self.device)
+        self.tokens = to_device(tokens, self.device)
+        self.lengths = to_device(lengths, self.device)
         self._bump()
 
     def set_rows(self, idxs, genomes: list[str]) -> tuple[np.ndarray, np.ndarray]:
@@ -686,9 +683,9 @@ class GenomeStore:
         self.tokens, self.lengths = _set_rows_program(
             self.tokens,
             self.lengths,
-            _upload(idxs_pad, self.device),
-            _upload(rows_pad, self.device),
-            _upload(lens_pad, self.device),
+            to_device(idxs_pad, self.device),
+            to_device(rows_pad, self.device),
+            to_device(lens_pad, self.device),
         )
         self._bump()
         return rows, lens
@@ -700,8 +697,8 @@ class GenomeStore:
         self.tokens, self.lengths = _copy_rows_program(
             self.tokens,
             self.lengths,
-            _upload(src_pad, self.device),
-            _upload(dst_pad, self.device),
+            to_device(src_pad, self.device),
+            to_device(dst_pad, self.device),
         )
         self._bump()
 
@@ -710,7 +707,7 @@ class GenomeStore:
         self.tokens, self.lengths = _permute_program(
             self.tokens,
             self.lengths,
-            _upload(np.asarray(perm, dtype=np.int64), self.device),
+            to_device(np.asarray(perm, dtype=np.int64), self.device),
             int(n_keep),
         )
         self._bump()
@@ -733,8 +730,8 @@ class GenomeStore:
         lengths = np.zeros(capacity, dtype=np.int32)
         lengths[: self.capacity] = lens
         self.capacity = capacity
-        self.tokens = _upload(tokens, self.device)
-        self.lengths = _upload(lengths, self.device)
+        self.tokens = to_device(tokens, self.device)
+        self.lengths = to_device(lengths, self.device)
         self._bump()
 
     def ensure_length_cap(self, g: int) -> None:
@@ -749,8 +746,8 @@ class GenomeStore:
         tokens = np.full((self.capacity, new_g), PAD, dtype=np.int8)
         tokens[:, : self.length_cap] = tok
         self.length_cap = new_g
-        self.tokens = _upload(tokens, self.device)
-        self.lengths = _upload(lens, self.device)
+        self.tokens = to_device(tokens, self.device)
+        self.lengths = to_device(lens, self.device)
         self._bump()
 
     def maybe_regrow(self) -> None:

@@ -281,7 +281,7 @@ def restore_stepper(stepper, aux: dict) -> None:
     trajectory-determining knob differs: a silently different config
     would break bit-identity unseen.
     """
-    from magicsoup_tpu_torch.stepper import to_device
+    from magicsoup_tpu_torch.util import to_device
 
     want = aux["config"]
     have = stepper_config(stepper)

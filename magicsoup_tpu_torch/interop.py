@@ -11,6 +11,7 @@ import torch
 
 from magicsoup_tpu_torch.ops.integrate import INT_PARAM_DTYPE, CellParams
 from magicsoup_tpu_torch.ops.params import TokenTables
+from magicsoup_tpu_torch.util import to_device_blocking
 
 _PARAM_DTYPES = {
     "Ke": torch.float32,
@@ -36,21 +37,17 @@ _TABLE_DTYPES = {
 }
 
 
-def _tensor(arr: np.ndarray, dtype: torch.dtype, device) -> torch.Tensor:
-    return torch.from_numpy(np.ascontiguousarray(arr)).to(device=device, dtype=dtype)
-
-
 def params_from_numpy(d: dict[str, np.ndarray], device) -> CellParams:
     """:class:`CellParams` from a dict keyed by the nine field names."""
     return CellParams(
-        **{k: _tensor(d[k], dt, device) for k, dt in _PARAM_DTYPES.items()}
+        **{k: to_device_blocking(d[k], device, dt) for k, dt in _PARAM_DTYPES.items()}
     )
 
 
 def tables_from_numpy(d: dict[str, np.ndarray], device) -> TokenTables:
     """:class:`TokenTables` from a dict keyed by the eight field names."""
     return TokenTables(
-        **{k: _tensor(d[k], dt, device) for k, dt in _TABLE_DTYPES.items()}
+        **{k: to_device_blocking(d[k], device, dt) for k, dt in _TABLE_DTYPES.items()}
     )
 
 
@@ -90,7 +87,7 @@ def load_world_arrays(world, arrays: dict) -> None:
 
     cm = np.zeros((cap, world.n_molecules), dtype=np.float32)
     cm[:n] = arrays["cell_molecules"]
-    world._cell_molecules = _tensor(cm, torch.float32, world.device)
+    world._cell_molecules = to_device_blocking(cm, world.device, torch.float32)
 
     src = params_from_numpy(
         {k: np.asarray(v)[:n] for k, v in arrays["params"].items()}, world.device
@@ -131,5 +128,5 @@ def device_state_from_numpy(d: dict[str, np.ndarray], device):
         arr = np.asarray(d[k])
         if dt == torch.int64:
             arr = arr.astype(np.int64)  # the key words are uint32
-        out[k] = _tensor(arr[None] if solo else arr, dt, device)
+        out[k] = to_device_blocking(arr[None] if solo else arr, device, dt)
     return DeviceState(**out)

@@ -14,10 +14,10 @@ rank holds its slot block of every tensor, through capacity growth too;
 the methods take global slot indices and write the rows the rank owns,
 and :meth:`global_params` all-gathers the whole tensors.  Parameter assembly groups cells by their rung (the pow2
 of their own protein count and domains per protein) and assembles each
-group at that rung, as the JAX package does, writing rows in place: on a
-card in one launch of the assembly kernel per group
-(:mod:`magicsoup_tpu_torch.ops.cuda_params`), on the CPU through the plain
-version in :mod:`magicsoup_tpu_torch.ops.params`.
+group at that rung, as the JAX package does, writing rows in place through
+:mod:`magicsoup_tpu_torch.ops.cuda_params`: on a card in one launch of the
+assembly kernel per group, on the CPU through the plain version in
+:mod:`magicsoup_tpu_torch.ops.params`.
 """
 import math
 import random
@@ -42,14 +42,13 @@ from magicsoup_tpu_torch.ops.params import (
     RUNG_D_MIN,
     RUNG_P_MIN,
     TokenTables,
-    assemble_rows,
     copy_rows,
     pad_pow2,
     permute_params,
     rung_pow2,
     unset_rows,
 )
-from magicsoup_tpu_torch.util import fetch_host, resolve_device, restored_device
+from magicsoup_tpu_torch.util import fetch_host, resolve_device, restored_device, to_device_blocking
 
 
 def _gather_ranges(starts: np.ndarray, counts: np.ndarray) -> np.ndarray:
@@ -373,14 +372,14 @@ class Kinetics:
 
         dev = self.device
         self.tables = TokenTables(
-            km_weights=torch.from_numpy(self.km_map.weights).to(dev),
-            vmax_weights=torch.from_numpy(self.vmax_map.weights).to(dev),
-            signs=torch.from_numpy(self.sign_map.signs).to(dev),
-            hills=torch.from_numpy(self.hill_map.numbers).to(dev),
-            reactions=torch.from_numpy(self.reaction_map.M).to(dev),
-            transports=torch.from_numpy(self.transport_map.M).to(dev),
-            effectors=torch.from_numpy(self.effector_map.M).to(dev),
-            mol_energies=torch.from_numpy(mol_energies).to(dev),
+            km_weights=to_device_blocking(self.km_map.weights, dev),
+            vmax_weights=to_device_blocking(self.vmax_map.weights, dev),
+            signs=to_device_blocking(self.sign_map.signs, dev),
+            hills=to_device_blocking(self.hill_map.numbers, dev),
+            reactions=to_device_blocking(self.reaction_map.M, dev),
+            transports=to_device_blocking(self.transport_map.M, dev),
+            effectors=to_device_blocking(self.effector_map.M, dev),
+            mol_energies=to_device_blocking(mol_energies, dev),
         )
         self._abs_temp_t = torch.tensor(abs_temp, dtype=torch.float32, device=dev)
 
@@ -606,12 +605,11 @@ class Kinetics:
 
     # graftlint: hot
     def scatter_dense(self, cell_idxs: np.ndarray, dense: np.ndarray):
-        """Assemble one packed token batch into parameter rows.  On a card
-        the batch goes up in one host->device copy and through one launch
-        of the assembly kernel (``ops/cuda_params.py``), with no host
-        synchronization; on the CPU the plain version runs in chunks that
-        bound its (b, p, d, s) temporaries.  Counts ``assembly.rows``, and
-        on a card ``assembly.kernel_rows`` and ``assembly.launches``."""
+        """Assemble one packed token batch into parameter rows through
+        :func:`~magicsoup_tpu_torch.ops.cuda_params.assemble_rows` (on a
+        card one launch of the assembly kernel with no host
+        synchronization, on the CPU the plain version).  Counts
+        ``assembly.rows``; the kernel counts its launches and rows."""
         cell_idxs = np.asarray(cell_idxs, dtype=np.int64)
         if self.mesh is not None:
             cell_idxs, sel = self._owned(cell_idxs)
@@ -621,32 +619,7 @@ class Kinetics:
             return
         self._param_epoch += 1
         _telemetry.count("assembly.rows", b)
-        if self.device.type == "cuda":
-            launched = _cuda_params.launches
-            _cuda_params.assemble_rows(
-                self.params, dense, self.tables, self._abs_temp_t, cell_idxs
-            )
-            _telemetry.count("assembly.kernel_rows", b)
-            _telemetry.count("assembly.launches", _cuda_params.launches - launched)
-            return
-        chunk = self._assembly_chunk(int(dense.shape[1]), int(dense.shape[2]))
-        for a in range(0, b, chunk):
-            assemble_rows(
-                self.params,
-                torch.from_numpy(np.ascontiguousarray(dense[a : a + chunk])).to(
-                    self.device
-                ),
-                self.tables,
-                self._abs_temp_t,
-                torch.from_numpy(cell_idxs[a : a + chunk]).to(self.device),
-            )
-
-    def _assembly_chunk(self, p_cap: int, d_cap: int) -> int:
-        """Largest pow2 batch whose (b, p, d, s) temporaries stay ~<= 256 MB
-        each at the given rung."""
-        per_row = max(p_cap * d_cap * self.n_signals, 1)
-        chunk = 1 << max((2**26 // per_row).bit_length() - 1, 0)
-        return max(IDX_BLOCK, chunk)
+        _cuda_params.assemble_rows(self.params, dense, self.tables, self._abs_temp_t, cell_idxs)
 
     def unset_cell_params(self, cell_idxs: np.ndarray | list[int]):
         """Zero the parameter rows of the given cell slots"""
@@ -656,7 +629,7 @@ class Kinetics:
         if len(cell_idxs) == 0:
             return
         self._param_epoch += 1
-        unset_rows(self.params, torch.from_numpy(cell_idxs).to(self.device))
+        unset_rows(self.params, to_device_blocking(cell_idxs, self.device))
 
     def copy_cell_params(
         self, from_idxs: np.ndarray | list[int], to_idxs: np.ndarray | list[int]
@@ -670,17 +643,17 @@ class Kinetics:
         if self.mesh is not None:
             # a parent's row may live on another rank: gather the source
             # rows, write the destinations this rank owns
-            src = torch.from_numpy(from_idxs).to(self.device)
+            src = to_device_blocking(from_idxs, self.device)
             dst, sel = self._owned(to_idxs)
-            dst_t = torch.from_numpy(dst).to(self.device)
-            sel_t = torch.from_numpy(np.nonzero(sel)[0]).to(self.device)
+            dst_t = to_device_blocking(dst, self.device)
+            sel_t = to_device_blocking(np.nonzero(sel)[0], self.device)
             for t in self.params:
                 t[dst_t] = _tiled.gather_rows(self.mesh, t, src)[sel_t]
             return
         copy_rows(
             self.params,
-            torch.from_numpy(from_idxs).to(self.device),
-            torch.from_numpy(to_idxs).to(self.device),
+            to_device_blocking(from_idxs, self.device),
+            to_device_blocking(to_idxs, self.device),
         )
 
     def permute_cells(self, perm: np.ndarray, n_keep: int):
@@ -688,7 +661,7 @@ class Kinetics:
         if self.mesh is not None:
             self.params = permute_params(self.params, perm, n_keep, mesh=self.mesh)
             return
-        perm_t = torch.from_numpy(np.asarray(perm, dtype=np.int64)).to(self.device)
+        perm_t = to_device_blocking(np.asarray(perm, dtype=np.int64), self.device)
         self.params = permute_params(self.params, perm_t, n_keep)
 
     def remove_cell_params(self, keep: np.ndarray):
@@ -761,9 +734,9 @@ class Kinetics:
         self.__dict__.setdefault("mesh", None)
         dev = restored_device(state["device"], "Kinetics")
         self.device = dev
-        self.params = CellParams(*(torch.from_numpy(a).to(dev) for a in state["params"]))
-        self.tables = TokenTables(*(torch.from_numpy(a).to(dev) for a in state["tables"]))
-        self._abs_temp_t = torch.from_numpy(state["_abs_temp_t"]).to(dev)
+        self.params = CellParams(*(to_device_blocking(a, dev) for a in state["params"]))
+        self.tables = TokenTables(*(to_device_blocking(a, dev) for a in state["tables"]))
+        self._abs_temp_t = to_device_blocking(state["_abs_temp_t"], dev)
 
     def get_proteome(self, proteome: list[ProteinSpecType]) -> list[Protein]:
         """

@@ -16,8 +16,9 @@ B = 1 launch on its slice.
 ``(B, c, ...)``; each parameter may be the live-row prefix of a ``(B, cap,
 ...)`` stack: the kernel takes the world stride, so nothing is copied.  On
 CUDA tensors it launches the kernel once for all B worlds on the current
-stream without synchronizing, and adds one to :data:`launches`; it raises
-on anything the kernel does not take, and never falls back.  On CPU
+stream without synchronizing, adds one to :data:`launches` and counts the
+launch and its route (``integrator.*``); it raises on anything the kernel
+does not take, and never falls back.  On CPU
 tensors it runs the plain version, :func:`integrate_signals_tiled`: the
 shared body of :mod:`magicsoup_tpu_torch.ops.integrate` with a leading
 tile axis.
@@ -28,7 +29,8 @@ world stride) in one launch of the grouped kernel, whose grid is flattened
 over every tile of every group; each world computes exactly what its
 group's own launch computes.  It counts in :data:`grouped_launches`, one
 per launch: one for the groups on the resident route and one for the
-others, each of at most :data:`MAX_GROUPS` groups.
+others, each of at most :data:`MAX_GROUPS` groups; its route is not
+counted.
 
 Each warp walks its cell's own proteins: the kernel scans the cell's
 parameter rows for its extent, one past its last protein slot that is not
@@ -62,6 +64,7 @@ from typing import NamedTuple
 import torch
 
 from magicsoup_tpu_torch._build import build_shared
+from magicsoup_tpu_torch.telemetry import recorder as _recorder
 from magicsoup_tpu_torch.ops.integrate import (
     INT_PARAM_DTYPE,
     CellParams,
@@ -351,14 +354,15 @@ def launch_plan(p: int, s: int, limit: int) -> Plan:
 def _slot_counters(device: torch.device) -> torch.Tensor:
     """The device counters of :data:`SLOT_COUNTERS` that a launch on
     ``device`` adds to now."""
-    from magicsoup_tpu_torch.telemetry import recorder
-
-    return recorder.device_counter(SLOT_COUNTERS, device)
+    return _recorder.device_counter(SLOT_COUNTERS, device)
 
 
 def _launch(X: torch.Tensor, params: CellParams, pstride: int) -> torch.Tensor:
     """Launch the kernel on ``X`` ``(B, c, s)`` (checked by :func:`_check`,
-    whose world stride ``pstride`` is); the output tensor."""
+    whose world stride ``pstride`` is); the output tensor.  Counts the
+    launch at its plan: its route, its parameter bytes and those staged
+    (:func:`route_bytes`), and the protein slots it was handed (B x c x p;
+    the kernel counts those it walks)."""
     B, c, s = X.shape
     p = params.Ke.shape[-1]
     if B > 65535:
@@ -393,6 +397,10 @@ def _launch(X: torch.Tensor, params: CellParams, pstride: int) -> torch.Tensor:
         raise RuntimeError(
             f"integrator kernel launch failed: {lib.ms_error_string(err).decode()}"
         )
+    param, staged = route_bytes(p, s, B * c, how.mask)
+    for name, n in (("launches", 1), (f"{how.route}_launches", 1), ("param_bytes", param),
+                    ("staged_bytes", staged), ("slots", B * c * p)):
+        _recorder.count(f"integrator.{name}", n)
     return out
 
 
@@ -497,8 +505,8 @@ def integrate_signals_cuda_grouped(Xs, params_list) -> list:
     On CUDA tensors: one launch of the grouped kernel for the groups of
     the launch plan's resident route and one for the others, each of at
     most :data:`MAX_GROUPS` groups, on the current stream without
-    synchronizing; each adds one to :data:`grouped_launches`.  On CPU
-    tensors: :func:`integrate_signals_tiled` per group.
+    synchronizing; each adds one to :data:`grouped_launches` (no route is
+    counted).  On CPU tensors: :func:`integrate_signals_tiled` per group.
     """
     global grouped_launches
     if len(Xs) != len(params_list):

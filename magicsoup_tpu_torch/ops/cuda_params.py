@@ -12,11 +12,12 @@ writes them into the state rows ``cell_idxs`` in place.  It raises on a
 row outside the state.  On a card it sends the batch and the rows up in
 one asynchronous copy and launches the kernel once (:func:`launch`), on
 the current stream and without synchronizing, adding one to
-:data:`launches`; it raises on anything the kernel does not take and on a
-build or launch failure, and never falls back.  For a state on the CPU
-it runs the plain version, which is also the kernel's test oracle: the
-kernel repeats its arithmetic operation for operation, so the two are
-bit-equal on the card.
+:data:`launches` and counting ``assembly.launches`` and
+``assembly.kernel_rows``; it raises on anything the kernel does not take
+and on a build or launch failure, and never falls back.  For a state on
+the CPU it runs the plain version in batches, which is also the kernel's
+test oracle: the kernel repeats its arithmetic operation for operation,
+so the two are bit-equal on the card.
 
 The kernel replaces no TPU kernel (the JAX package runs the assembly as an
 XLA program); it replaces the eager chain of about 470 small launches per
@@ -36,6 +37,7 @@ from magicsoup_tpu_torch.constants import EPS, GAS_CONSTANT, MAX
 from magicsoup_tpu_torch.ops import params as _params
 from magicsoup_tpu_torch.ops.cuda_integrate import NVCC_FLAGS, nvcc
 from magicsoup_tpu_torch.ops.integrate import INT_PARAM_DTYPE, CellParams
+from magicsoup_tpu_torch.telemetry import recorder as _recorder
 
 #: kernel launches so far (a plain count; set it to 0 to start a window)
 launches = 0
@@ -141,7 +143,8 @@ def assemble_rows(
     into ``state`` rows ``cell_idxs`` ``(b,)`` int64 in place
     (:func:`magicsoup_tpu_torch.ops.params.assemble_rows`): for a state on
     a card, one copy of the batch and the rows to it and one
-    :func:`launch`; for a state on the CPU, the plain version.  Target
+    :func:`launch`; for a state on the CPU, the plain version in batches
+    of :func:`_assembly_chunk`.  Target
     rows must be distinct; one outside ``[0, C)`` raises ``IndexError``."""
     if not isinstance(dense, np.ndarray) or dense.dtype != np.int16:
         raise TypeError(f"dense must be an int16 array, got {getattr(dense, 'dtype', type(dense))}")
@@ -162,15 +165,25 @@ def assemble_rows(
         )
     dev = state.Vmax.device
     if dev.type == "cpu":
-        _params.assemble_rows(
-            state, torch.from_numpy(np.ascontiguousarray(dense)), tables, abs_temp,
-            torch.from_numpy(np.ascontiguousarray(cell_idxs)),
-        )
+        chunk = _assembly_chunk(dense.shape[1], dense.shape[2], state.Kmr.shape[-1])
+        for a in range(0, len(cell_idxs), chunk):
+            _params.assemble_rows(
+                state, torch.from_numpy(np.ascontiguousarray(dense[a : a + chunk])), tables,
+                abs_temp, torch.from_numpy(np.ascontiguousarray(cell_idxs[a : a + chunk])),
+            )
         return
     if dev.type != "cuda":
         raise ValueError(f"no assembly kernel for device {dev}")
     dense_t, idx_t = _upload(dense, cell_idxs, dev)
     launch(state, dense_t, tables, abs_temp, idx_t)
+
+
+def _assembly_chunk(p_cap: int, d_cap: int, s: int) -> int:
+    """The plain version's batch on the CPU: the largest pow2 whose (b, p,
+    d, s) temporaries stay ~<= 256 MB each at the given rung."""
+    per_row = max(p_cap * d_cap * s, 1)
+    chunk = 1 << max((2**26 // per_row).bit_length() - 1, 0)
+    return max(_params.IDX_BLOCK, chunk)
 
 
 def _upload(
@@ -221,3 +234,5 @@ def launch(
             f"assembly kernel launch failed: {lib.ms_assemble_error_string(err).decode()}"
         )
     launches += 1
+    _recorder.count("assembly.launches")
+    _recorder.count("assembly.kernel_rows", dense.shape[0])

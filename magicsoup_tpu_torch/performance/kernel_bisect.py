@@ -46,6 +46,7 @@ from magicsoup_tpu_torch.interop import params_from_numpy
 from magicsoup_tpu_torch.ops import cuda_bisect as cb
 from magicsoup_tpu_torch.ops import cuda_integrate as ci
 from magicsoup_tpu_torch.ops.integrate import CellParams
+from magicsoup_tpu_torch.util import to_device_blocking
 from magicsoup_tpu_torch.performance import (
     HBM_BYTES_PER_S,
     card_line,
@@ -208,7 +209,7 @@ def run_ladder(
     and whether every rung passed."""
     dev = torch.device(device)
     X_np, d = draw_inputs(c, p, s)
-    X = torch.from_numpy(X_np).to(dev)
+    X = to_device_blocking(X_np, dev)
     params = params_from_numpy(d, dev)
     table = steps(X, params)
     rows = []

@@ -99,6 +99,7 @@ from magicsoup_tpu_torch.util import (
     random_genome,
     randstr,
     register_exit_join,
+    to_device,
 )
 
 
@@ -237,15 +238,6 @@ class DispatchInputs(NamedTuple):
     spawn_dense: tuple  # B x ((n, p, d, 5) i16 token rows, or None)
     push: tuple  # B x ((dense (n, p, d, 5) i16, rows (n,) i64), or None)
     div_budget: torch.Tensor  # (B,) i64 per-step division budgets
-
-
-def to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
-    """Host numpy -> ``device`` without a stream synchronization: through
-    pinned memory and a non-blocking copy on a CUDA device."""
-    t = torch.from_numpy(np.array(arr, copy=True))
-    if torch.device(device).type == "cuda":
-        return t.pin_memory().to(device, non_blocking=True)
-    return t
 
 
 # --------------------------------------------------------------------- #

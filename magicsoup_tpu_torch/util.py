@@ -1,6 +1,6 @@
 """
 Host-side helper utilities: random sequence generation, codon enumeration,
-torus geometry, and the one device->host boundary.
+torus geometry, and the one boundary each way between host and device.
 
 Counterpart of :mod:`magicsoup_tpu.util`, with the same seeded helpers
 (every stochastic helper takes an optional ``rng``, a ``random.Random``,
@@ -249,6 +249,26 @@ def fetch_host(t) -> np.ndarray:
         out = t.detach().cpu().numpy()
     note_fetch(out.nbytes)
     return out
+
+
+def to_device(arr: np.ndarray, device) -> torch.Tensor:
+    """Host numpy -> ``device``, the port's host->device boundary: on a
+    CUDA device through pinned memory without blocking the host; on the
+    CPU a fresh tensor."""
+    t = torch.from_numpy(np.array(arr, copy=True))
+    if torch.device(device).type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t
+
+
+def to_device_blocking(arr: np.ndarray, device, dtype: torch.dtype | None = None) -> torch.Tensor:
+    """Host numpy -> ``device`` (as ``dtype``) from pageable memory, which
+    blocks the host on a CUDA device; on the CPU it may share ``arr``'s
+    memory.  It keeps the timing of the sites that copy so, until they are
+    measured on :func:`to_device`."""
+    # order="C", not ascontiguousarray: a 0-d array stays 0-d
+    t = torch.from_numpy(np.asarray(arr, order="C"))
+    return t.to(device) if dtype is None else t.to(device=device, dtype=dtype)
 
 
 # Background worker threads (the pipelined stepper's record fetcher and

@@ -65,7 +65,6 @@ from magicsoup_tpu_torch.genetics import Genetics, PhenotypeCache
 from magicsoup_tpu_torch.kinetics import Kinetics
 from magicsoup_tpu_torch.native import engine as _engine
 from magicsoup_tpu_torch.ops import backends as _backends
-from magicsoup_tpu_torch.ops import cuda_integrate as _cuda_integrate
 from magicsoup_tpu_torch.ops import diffusion as _diff
 from magicsoup_tpu_torch.ops.detmath import flush_denormal
 from magicsoup_tpu_torch.ops.integrate import CellParams, default_deterministic
@@ -86,6 +85,7 @@ from magicsoup_tpu_torch.util import (
     resolve_device,
     restore_device,
     restored_device,
+    to_device_blocking,
 )
 
 _MIN_CAPACITY = 64
@@ -314,14 +314,14 @@ class World:
 
         mols = chemistry.molecules
         self.n_molecules = len(mols)
-        self._diff_kernels = self._to_dev(
-            _diff.diffusion_kernels([d.diffusivity for d in mols])
+        self._diff_kernels = to_device_blocking(
+            _diff.diffusion_kernels([d.diffusivity for d in mols]), self.device
         )
-        self._perm_factors = self._to_dev(
-            _diff.permeation_factors([d.permeability for d in mols])
+        self._perm_factors = to_device_blocking(
+            _diff.permeation_factors([d.permeability for d in mols]), self.device
         )
-        self._degrad_factors = self._to_dev(
-            _diff.degradation_factors([d.half_life for d in mols])
+        self._degrad_factors = to_device_blocking(
+            _diff.degradation_factors([d.half_life for d in mols]), self.device
         )
 
         if genome_backend not in ("string", "token"):
@@ -361,9 +361,6 @@ class World:
         self._ensure_capacity(_MIN_CAPACITY)
         # the recorder touches no RNG and no device state
         self.telemetry = TelemetryRecorder.coerce(telemetry)
-
-    def _to_dev(self, arr: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
 
     def _ftz(self):
         """Deterministic mode flushes subnormals on the CPU as XLA does."""
@@ -459,7 +456,7 @@ class World:
                 f"cell_molecules must have shape {(self.n_cells, self.n_molecules)}"
             )
         new_cm = self._cell_molecules.clone()
-        new_cm[: self.n_cells] = self._to_dev(value)
+        new_cm[: self.n_cells] = to_device_blocking(value, self.device)
         self._cell_molecules = new_cm
 
     def prefetch_cell_molecule_column(self, mol_idx: int):
@@ -499,7 +496,7 @@ class World:
         if len(cell_idxs) == 0:
             return
         flat = np.asarray(cell_idxs, dtype=np.int64) * self.n_molecules + mol_idx
-        idxs = self._to_dev(flat)
+        idxs = to_device_blocking(flat, self.device)
         vals = torch.full(
             idxs.shape, np.float32(delta).item(), dtype=torch.float32, device=self.device
         )
@@ -576,15 +573,15 @@ class World:
         self.kinetics.ensure_capacity(n_cells=cap)
 
     def _sync_positions(self):
-        self._positions_dev = self._to_dev(self._np_positions.astype(np.int64))
+        self._positions_dev = to_device_blocking(self._np_positions.astype(np.int64), self.device)
 
     def _init_molecule_map(self, init: str) -> torch.Tensor:
         shape = (self.n_molecules, self.map_size, self.map_size)
         if init == "zeros":
-            return self._to_dev(np.zeros(shape, dtype=np.float32))
+            return to_device_blocking(np.zeros(shape, dtype=np.float32), self.device)
         if init == "randn":
             arr = np.abs(self._nprng.standard_normal(shape, dtype=np.float32) + 10.0)
-            return self._to_dev(arr)
+            return to_device_blocking(arr, self.device)
         raise ValueError(
             f"Didnt recognize mol_map_init={init}. Should be one of: 'zeros', 'randn'."
         )
@@ -729,8 +726,8 @@ class World:
         self._sync_positions()
 
         # new cells pick up half the molecules of their pixel
-        xs = self._to_dev(free_pos[:, 0].astype(np.int64))
-        ys = self._to_dev(free_pos[:, 1].astype(np.int64))
+        xs = to_device_blocking(free_pos[:, 0].astype(np.int64), self.device)
+        ys = to_device_blocking(free_pos[:, 1].astype(np.int64), self.device)
         pickup = self._molecule_map[:, xs, ys] * 0.5  # (mols, b)
         self._molecule_map = _map_add(self._molecule_map, xs, ys, -pickup)
         new_cm = self._cell_molecules.clone()
@@ -783,9 +780,9 @@ class World:
         new_cm = self._cell_molecules.clone()
         write_new_rows(
             new_cm[None],
-            self._to_dev(np.array([n_old], dtype=np.int64)),
-            self._to_dev(vals[None]),
-            self._to_dev(np.array([n_new], dtype=np.int64)),
+            to_device_blocking(np.array([n_old], dtype=np.int64), self.device),
+            to_device_blocking(vals[None], self.device),
+            to_device_blocking(np.array([n_new], dtype=np.int64), self.device),
         )
         self._cell_molecules = new_cm
 
@@ -904,8 +901,8 @@ class World:
         self._sync_positions()
 
         # molecules are shared evenly; children inherit parameter rows
-        parents = self._to_dev(np.asarray(parent_idxs, dtype=np.int64))
-        children = self._to_dev(np.asarray(child_idxs, dtype=np.int64))
+        parents = to_device_blocking(np.asarray(parent_idxs, dtype=np.int64), self.device)
+        children = to_device_blocking(np.asarray(child_idxs, dtype=np.int64), self.device)
         new_cm = self._cell_molecules.clone()
         half = new_cm[parents] * 0.5
         new_cm[parents] = half
@@ -955,15 +952,15 @@ class World:
         n_keep = int(keep_mask.sum())
 
         # killed cells dump their contents onto their pixel
-        kill_t = self._to_dev(kill)
+        kill_t = to_device_blocking(kill, self.device)
         spill = self._cell_molecules[kill_t]  # (b, mols)
         self._molecule_map = _map_add(
             self._molecule_map,
-            self._to_dev(pos[:, 0].astype(np.int64)),
-            self._to_dev(pos[:, 1].astype(np.int64)),
+            to_device_blocking(pos[:, 0].astype(np.int64), self.device),
+            to_device_blocking(pos[:, 1].astype(np.int64), self.device),
             spill.T,
         )
-        perm_t = self._to_dev(perm.astype(np.int64))
+        perm_t = to_device_blocking(perm.astype(np.int64), self.device)
         self._cell_molecules = compact_rows(self._cell_molecules, perm_t, n_keep)
         self.kinetics.permute_cells(perm, n_keep)
 
@@ -1063,17 +1060,12 @@ class World:
         ``molecule_map`` and ``cell_molecules``.  With ``prefetch_column``,
         that molecule's column starts its device->host copy right away
         (a later :meth:`cell_molecule_column` picks it up).  Counts the
-        integrator's calls, its kernel launches, and the rows and
-        protein slots it was handed (``integrator.*``); where the kernel
-        launched, also its parameter bytes in the kernel's layout, those
-        its launch plan stages in shared memory, its launches by route
-        (:func:`~magicsoup_tpu_torch.ops.cuda_integrate.route_bytes`), and
-        the protein slots it was handed (``integrator.slots``, rows x p;
-        the kernel counts those it walks on the device)."""
+        integrator's calls and the rows and proteins it was handed
+        (``integrator.calls``, ``.rows``, ``.p``); on a card the kernel's
+        wrapper counts its launches and their routes."""
         if self.n_cells == 0:
             return
         has_col = prefetch_column is not None
-        launches = _cuda_integrate.launches
         if self._mesh is not None:
             q = self._capacity // self._mesh.size
             self._mesh_activity()
@@ -1083,30 +1075,11 @@ class World:
             with self._ftz():
                 self._molecule_map, self._cell_molecules = self._activity_at(q)
             _runtime.note_program_shape(self._activity_variant_key(q, has_col))
-        launched = _cuda_integrate.launches - launches
-        p = self.kinetics.params.Vmax.shape[1]
         _telemetry.count("integrator.calls")
-        _telemetry.count("integrator.launches", launched)
         _telemetry.count("integrator.rows", q)
-        _telemetry.count("integrator.p", p)
-        if launched:
-            self._count_route(p, q, launched)
+        _telemetry.count("integrator.p", self.kinetics.params.Vmax.shape[1])
         if has_col:
             self.prefetch_cell_molecule_column(prefetch_column)
-
-    def _count_route(self, p: int, q: int, launched: int) -> None:
-        """Count the integrator kernel's route for ``launched`` launches of
-        ``q`` rows at ``p`` proteins: its plan is the launch's own
-        (cached per shape)."""
-        n = self.kinetics.params.N
-        s = n.shape[-1]
-        limit = _cuda_integrate.smem_limit(n.device.index)
-        how = _cuda_integrate.launch_plan(p, s, limit)
-        param, staged = _cuda_integrate.route_bytes(p, s, q, how.mask)
-        _telemetry.count("integrator.param_bytes", launched * param)
-        _telemetry.count("integrator.staged_bytes", launched * staged)
-        _telemetry.count(f"integrator.{how.route}_launches", launched)
-        _telemetry.count("integrator.slots", launched * q * p)
 
     def _activity_at(self, q: int) -> tuple[torch.Tensor, torch.Tensor]:
         """The activity's new ``(molecule_map, cell_molecules)`` over the
@@ -1499,7 +1472,7 @@ class World:
             self.telemetry = TelemetryRecorder()
         self.device = restored_device(state["device"], "World")
         for name in self._PICKLED_TENSORS:
-            setattr(self, name, self._to_dev(state[name]))
+            setattr(self, name, to_device_blocking(state[name], self.device))
         self._col_prefetch = None
         self._sync_positions()
 
@@ -1579,7 +1552,7 @@ class World:
 
         cm = np.load(statedir / "cell_molecules.npy")
         self._np_cell_map = np.load(statedir / "cell_map.npy")
-        self._molecule_map = self._to_dev(np.load(statedir / "molecule_map.npy"))
+        self._molecule_map = to_device_blocking(np.load(statedir / "molecule_map.npy"), self.device)
         lifetimes = np.load(statedir / "cell_lifetimes.npy")
         positions = np.load(statedir / "cell_positions.npy")
         divisions = np.load(statedir / "cell_divisions.npy")
@@ -1611,7 +1584,7 @@ class World:
         self._sync_positions()
         full_cm = np.zeros((self._capacity, self.n_molecules), dtype=np.float32)
         full_cm[:n] = cm
-        self._cell_molecules = self._to_dev(full_cm)
+        self._cell_molecules = to_device_blocking(full_cm, self.device)
 
         if not ignore_cell_params:
             self.update_cells(genome_idx_pairs=[(g, i) for i, g in enumerate(genomes)])

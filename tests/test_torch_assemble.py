@@ -240,10 +240,10 @@ def _kinetics(seed: int = 5) -> Kinetics:
 
 
 @pytest.mark.parametrize("chunk", [None, 4])
-def test_scatter_dense_on_the_cpu_writes_the_plain_versions_bits(chunk):
+def test_scatter_dense_on_the_cpu_writes_the_plain_versions_bits(chunk, monkeypatch):
     kin = _kinetics()
     if chunk is not None:
-        kin._assembly_chunk = lambda p, d: chunk
+        monkeypatch.setattr(cuda_params, "_assembly_chunk", lambda p, d, s: chunk)
     dense = _dense(9, 16, 4, seed=6)
     rows = np.random.default_rng(7).permutation(40)[: len(dense)]
     want = CellParams(*(t.clone() for t in kin.params))

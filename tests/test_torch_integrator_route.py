@@ -9,7 +9,9 @@ shape:
   scratch fits, and ``SharedMemoryLimitError`` names it;
 - the CPU path counts no route; on the card a co2_fixing world's step
   counts what ``route_bytes`` gives at its (p, s), its protein slots
-  (rows x p) and, on the device, those its tiles walk (marked ``cuda``);
+  (rows x p) and, on the device, those its tiles walk, and a
+  ``PipelinedStepper`` step counts the route of each of its batched
+  launches (marked ``cuda``);
 - on the card the kernel walks each cell's own proteins: on the ragged
   states of ``test_torch_kernel_emulation.py`` (solo, B = 3, grouped)
   and on a world's own state it is bit-equal to itself on the same cells
@@ -129,6 +131,41 @@ def test_card_step_counts_its_route(monkeypatch):
     assert sum(delta.get(k, 0) for k in ROUTE[2:]) == 1
     slots = delta["integrator.rows"] * p
     assert delta["integrator.slots"] == slots
+    assert 0 < delta["integrator.live_slots"] <= delta["integrator.walked_slots"] <= slots
+
+
+@pytest.mark.cuda
+def test_card_stepper_step_counts_its_route(monkeypatch):
+    """The batched launches of a PipelinedStepper's step count their route
+    at the kernel's wrapper, as a World's call does, without the World's
+    ``integrator.calls``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the integrator kernel has no CPU mode")
+    monkeypatch.setenv("MAGICSOUP_TPU_TORCH_INTEGRATOR", "cuda")
+    w = _co2_world("cuda", 3000, 1024, monkeypatch)
+    st = mt.PipelinedStepper(w, target_cells=1024, lag=2, megastep=4)
+    st.step()  # warm: the kernels' builds and first launches
+    st.flush()
+    launches = ci.launches
+    before = telemetry.counter_totals()
+    st.step()
+    st.flush()
+    torch.cuda.synchronize()
+    after = telemetry.counter_totals()
+    delta = {k: after.get(k, 0) - before.get(k, 0) for k in after}
+    launched = ci.launches - launches
+    assert launched >= 4 and delta["integrator.launches"] == launched
+    assert delta.get("integrator.calls", 0) == 0
+    p, s = w.kinetics.params.Vmax.shape[1], 2 * len(w.chemistry.molecules)
+    limit = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
+    how = ci.plan(p, s, limit)
+    param, staged = ci.route_bytes(p, s, 1, how.mask)
+    assert delta[f"integrator.{how.route}_launches"] == launched
+    assert sum(delta.get(k, 0) for k in ROUTE[2:]) == launched
+    assert delta["integrator.param_bytes"] > 0
+    assert delta["integrator.param_bytes"] * staged == delta["integrator.staged_bytes"] * param
+    slots = delta["integrator.slots"]
+    assert slots % p == 0
     assert 0 < delta["integrator.live_slots"] <= delta["integrator.walked_slots"] <= slots
 
 

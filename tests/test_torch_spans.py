@@ -250,7 +250,7 @@ def test_world_step_opens_its_spans_nested(tmp_path):
                                                             rel=1e-9)
     counts = w.telemetry.counts()
     assert counts["integrator.calls"] == 1
-    assert counts["integrator.launches"] == 0  # the CPU launches no kernel
+    assert counts.get("integrator.launches", 0) == 0  # the CPU launches no kernel
     assert counts["integrator.p"] == w.kinetics.params.Vmax.shape[1]
     assert counts["phenotype.misses"] > 0
 

@@ -47,6 +47,7 @@ from magicsoup_tpu_torch import stepper as tstepper  # noqa: E402
 from magicsoup_tpu_torch.analysis import runtime  # noqa: E402
 from magicsoup_tpu_torch.examples.wood_ljungdahl import CHEMISTRY as TCHEM  # noqa: E402
 from magicsoup_tpu_torch.interop import device_state_from_numpy, load_world_arrays  # noqa: E402
+from magicsoup_tpu_torch.util import to_device  # noqa: E402
 
 KW = dict(
     mol_name="ATP",
@@ -101,7 +102,7 @@ def test_bit_packing_matches_jax():
     for n in (1, 16, 37, 128):
         b = rng.random(n) < 0.5
         ref = np.asarray(jstepper._pack_bits(jnp.asarray(b)))
-        out = tstepper._pack_bits(tstepper.to_device(b[None], "cpu"))[0].numpy()
+        out = tstepper._pack_bits(to_device(b[None], "cpu"))[0].numpy()
         assert np.array_equal(ref, out)
         assert np.array_equal(tstepper._unpack_bits(out, n), b)
 
