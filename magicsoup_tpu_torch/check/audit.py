@@ -334,7 +334,7 @@ def _cross_check_params(
     predates a capacity growth, and both are inert."""
     from magicsoup_tpu_torch.native import engine as _engine
     from magicsoup_tpu_torch.ops.params import compute_cell_params
-    from magicsoup_tpu_torch.util import fetch_host, to_device_blocking
+    from magicsoup_tpu_torch.util import fetch_host, to_device
 
     kin = world.kinetics
     out: list[InvariantViolation] = []
@@ -360,7 +360,7 @@ def _cross_check_params(
         pc, prots, doms, kin.max_proteins, max(kin.max_doms, 1)
     )
     expect = compute_cell_params(
-        to_device_blocking(dense, kin.device), kin.tables, kin._abs_temp_t
+        to_device(dense, kin.device), kin.tables, kin._abs_temp_t
     )
     expect = [fetch_host(t) for t in expect]
     names = type(params)._fields

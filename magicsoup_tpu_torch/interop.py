@@ -11,7 +11,7 @@ import torch
 
 from magicsoup_tpu_torch.ops.integrate import INT_PARAM_DTYPE, CellParams
 from magicsoup_tpu_torch.ops.params import TokenTables
-from magicsoup_tpu_torch.util import to_device_blocking
+from magicsoup_tpu_torch.util import to_device
 
 _PARAM_DTYPES = {
     "Ke": torch.float32,
@@ -40,14 +40,14 @@ _TABLE_DTYPES = {
 def params_from_numpy(d: dict[str, np.ndarray], device) -> CellParams:
     """:class:`CellParams` from a dict keyed by the nine field names."""
     return CellParams(
-        **{k: to_device_blocking(d[k], device, dt) for k, dt in _PARAM_DTYPES.items()}
+        **{k: to_device(d[k], device, dt) for k, dt in _PARAM_DTYPES.items()}
     )
 
 
 def tables_from_numpy(d: dict[str, np.ndarray], device) -> TokenTables:
     """:class:`TokenTables` from a dict keyed by the eight field names."""
     return TokenTables(
-        **{k: to_device_blocking(d[k], device, dt) for k, dt in _TABLE_DTYPES.items()}
+        **{k: to_device(d[k], device, dt) for k, dt in _TABLE_DTYPES.items()}
     )
 
 
@@ -87,7 +87,7 @@ def load_world_arrays(world, arrays: dict) -> None:
 
     cm = np.zeros((cap, world.n_molecules), dtype=np.float32)
     cm[:n] = arrays["cell_molecules"]
-    world._cell_molecules = to_device_blocking(cm, world.device, torch.float32)
+    world._cell_molecules = to_device(cm, world.device, torch.float32)
 
     src = params_from_numpy(
         {k: np.asarray(v)[:n] for k, v in arrays["params"].items()}, world.device
@@ -128,5 +128,5 @@ def device_state_from_numpy(d: dict[str, np.ndarray], device):
         arr = np.asarray(d[k])
         if dt == torch.int64:
             arr = arr.astype(np.int64)  # the key words are uint32
-        out[k] = to_device_blocking(arr[None] if solo else arr, device, dt)
+        out[k] = to_device(arr[None] if solo else arr, device, dt)
     return DeviceState(**out)

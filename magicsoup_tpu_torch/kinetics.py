@@ -43,12 +43,13 @@ from magicsoup_tpu_torch.ops.params import (
     RUNG_P_MIN,
     TokenTables,
     copy_rows,
+    gather_live_rows,
     pad_pow2,
     permute_params,
     rung_pow2,
     unset_rows,
 )
-from magicsoup_tpu_torch.util import fetch_host, resolve_device, restored_device, to_device_blocking
+from magicsoup_tpu_torch.util import fetch_host, resolve_device, restored_device, to_device
 
 
 def _gather_ranges(starts: np.ndarray, counts: np.ndarray) -> np.ndarray:
@@ -372,14 +373,14 @@ class Kinetics:
 
         dev = self.device
         self.tables = TokenTables(
-            km_weights=to_device_blocking(self.km_map.weights, dev),
-            vmax_weights=to_device_blocking(self.vmax_map.weights, dev),
-            signs=to_device_blocking(self.sign_map.signs, dev),
-            hills=to_device_blocking(self.hill_map.numbers, dev),
-            reactions=to_device_blocking(self.reaction_map.M, dev),
-            transports=to_device_blocking(self.transport_map.M, dev),
-            effectors=to_device_blocking(self.effector_map.M, dev),
-            mol_energies=to_device_blocking(mol_energies, dev),
+            km_weights=to_device(self.km_map.weights, dev),
+            vmax_weights=to_device(self.vmax_map.weights, dev),
+            signs=to_device(self.sign_map.signs, dev),
+            hills=to_device(self.hill_map.numbers, dev),
+            reactions=to_device(self.reaction_map.M, dev),
+            transports=to_device(self.transport_map.M, dev),
+            effectors=to_device(self.effector_map.M, dev),
+            mol_energies=to_device(mol_energies, dev),
         )
         self._abs_temp_t = torch.tensor(abs_temp, dtype=torch.float32, device=dev)
 
@@ -388,6 +389,11 @@ class Kinetics:
         self.max_doms = 1
         self.mesh = None
         self.params = self._alloc(0, 0)
+        # (the params they belong to, {(shape, dtype): (tensor, rows that
+        # may be nonzero)}): where :meth:`compact_cells` writes next, and
+        # that ``params`` are this object's own; void once ``params`` is
+        # replaced by anyone else
+        self._spares: tuple[CellParams, dict] | None = (self.params, {})
         # bumped by every in-place write into ``params`` rows (the JAX
         # package replaces its arrays instead): the stepper's flush token
         # reads it to see a parameter change between a flush and the
@@ -424,6 +430,7 @@ class Kinetics:
     def _resize(self, c: int, p: int):
         """Grow-only: new tensors at (c, p), the old rows copied in."""
         old = self.params
+        self._spares = None  # freed before the new set is allocated
         new = self._alloc(c, p)
         oc, op = old.Ke.shape
         for o, n in zip(old, new):
@@ -433,6 +440,7 @@ class Kinetics:
             else:
                 n[:oc, :op] = o
         self.params = new
+        self._spares = (new, {})
         self.max_cells = c
         self.max_proteins = p
 
@@ -629,7 +637,7 @@ class Kinetics:
         if len(cell_idxs) == 0:
             return
         self._param_epoch += 1
-        unset_rows(self.params, to_device_blocking(cell_idxs, self.device))
+        unset_rows(self.params, to_device(cell_idxs, self.device))
 
     def copy_cell_params(
         self, from_idxs: np.ndarray | list[int], to_idxs: np.ndarray | list[int]
@@ -643,17 +651,17 @@ class Kinetics:
         if self.mesh is not None:
             # a parent's row may live on another rank: gather the source
             # rows, write the destinations this rank owns
-            src = to_device_blocking(from_idxs, self.device)
+            src = to_device(from_idxs, self.device)
             dst, sel = self._owned(to_idxs)
-            dst_t = to_device_blocking(dst, self.device)
-            sel_t = to_device_blocking(np.nonzero(sel)[0], self.device)
+            dst_t = to_device(dst, self.device)
+            sel_t = to_device(np.nonzero(sel)[0], self.device)
             for t in self.params:
                 t[dst_t] = _tiled.gather_rows(self.mesh, t, src)[sel_t]
             return
         copy_rows(
             self.params,
-            to_device_blocking(from_idxs, self.device),
-            to_device_blocking(to_idxs, self.device),
+            to_device(from_idxs, self.device),
+            to_device(to_idxs, self.device),
         )
 
     def permute_cells(self, perm: np.ndarray, n_keep: int):
@@ -661,8 +669,48 @@ class Kinetics:
         if self.mesh is not None:
             self.params = permute_params(self.params, perm, n_keep, mesh=self.mesh)
             return
-        perm_t = to_device_blocking(np.asarray(perm, dtype=np.int64), self.device)
+        perm_t = to_device(np.asarray(perm, dtype=np.int64), self.device)
         self.params = permute_params(self.params, perm_t, n_keep)
+
+    def compact_cells(self, keep: torch.Tensor, n_cells: int) -> tuple[int, int]:
+        """Stable compaction on kill for a world that holds ``n_cells``
+        live rows, every row from ``n_cells`` on zero: the rows ``keep`` (a
+        device index, ascending, below ``n_cells``) move to the front, rows
+        ``len(keep)`` to ``n_cells`` become zero, and rows from ``n_cells``
+        on are neither read nor written.  The same rows as
+        :meth:`permute_cells` by the permutation that puts ``keep`` first.
+
+        Each tensor is gathered into a spare of its shape and dtype, a
+        tensor an earlier compaction replaced, whose rows past the count it
+        was left with are zero: only the rows from ``len(keep)`` to that
+        count are zeroed.  The tensor replaced is the next spare of its
+        shape, with ``n_cells`` nonzero rows at most.  So one spare per
+        shape (three for the nine tensors) is held between kills, never a
+        second set, and the device's peak stays below a full-capacity
+        compaction's two sets.  Tensors that another owner put in place
+        may be shared, so they are neither written nor kept: each is
+        gathered into a new tensor once.  Returns the rows written and the
+        rows of the whole capacity, summed over the tensors."""
+        spares, self._spares = self._spares, None
+        # void where another owner replaced the tensors: those may be
+        # shared (a stepper's views), so each gets a new one and none is kept
+        held = spares[1] if spares is not None and spares[0] is self.params else None
+        del spares  # void spares are freed before any tensor is made
+        out, rows = [], 0
+        for t in self.params:
+            key = (t.shape, t.dtype)
+            spare = None if held is None else held.pop(key, None)
+            if spare is None:
+                dst, dirty = torch.empty_like(t), t.shape[0]
+            else:
+                dst, dirty = spare
+            rows += gather_live_rows(dst, t, keep, dirty)
+            out.append(dst)
+            if held is not None:
+                held[key] = (t, n_cells)
+        self.params = CellParams(*out)
+        self._spares = (self.params, {} if held is None else held)
+        return rows, sum(t.shape[0] for t in out)
 
     def remove_cell_params(self, keep: np.ndarray):
         """
@@ -721,6 +769,7 @@ class Kinetics:
         saved from."""
         state = self.__dict__.copy()
         state["params"] = CellParams(*(fetch_host(t) for t in self.global_params()))
+        state["_spares"] = None
         # a mesh is bound to a live process group: a pickle is mesh-free
         state["mesh"] = None
         state["tables"] = TokenTables(*(fetch_host(t) for t in self.tables))
@@ -734,9 +783,10 @@ class Kinetics:
         self.__dict__.setdefault("mesh", None)
         dev = restored_device(state["device"], "Kinetics")
         self.device = dev
-        self.params = CellParams(*(to_device_blocking(a, dev) for a in state["params"]))
-        self.tables = TokenTables(*(to_device_blocking(a, dev) for a in state["tables"]))
-        self._abs_temp_t = to_device_blocking(state["_abs_temp_t"], dev)
+        self.params = CellParams(*(to_device(a, dev) for a in state["params"]))
+        self._spares = (self.params, {})
+        self.tables = TokenTables(*(to_device(a, dev) for a in state["tables"]))
+        self._abs_temp_t = to_device(state["_abs_temp_t"], dev)
 
     def get_proteome(self, proteome: list[ProteinSpecType]) -> list[Protein]:
         """

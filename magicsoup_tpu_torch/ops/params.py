@@ -278,9 +278,11 @@ def assemble_rows(
 
 
 def unset_rows(state: CellParams, cell_idxs: torch.Tensor) -> None:
-    """Zero parameter rows at ``cell_idxs`` in place."""
+    """Zero parameter rows at ``cell_idxs`` in place (a fill, which takes
+    the zero as a kernel argument: ``s[idx] = 0`` would upload it, and on
+    a card that copy synchronizes)."""
     for s in state:
-        s[cell_idxs] = 0
+        s.index_fill_(0, cell_idxs, 0)
 
 
 def copy_rows(state: CellParams, from_idxs: torch.Tensor, to_idxs: torch.Tensor) -> None:
@@ -301,6 +303,28 @@ def compact_rows(arr: torch.Tensor, perm: torch.Tensor, n_keep) -> torch.Tensor:
         drop = (rank >= n_keep).view((-1,) + (1,) * (out.ndim - 1))
         return out.masked_fill(drop, 0)
     out[n_keep:] = 0
+    return out
+
+
+def gather_live_rows(dst: torch.Tensor, src: torch.Tensor, keep: torch.Tensor, dirty: int) -> int:
+    """Stable compaction of the live rows into another buffer, the kill
+    path of a world that knows its live count on the host: ``dst[j] =
+    src[keep[j]]`` for ``j < len(keep)``, then rows ``len(keep)`` to
+    ``dirty`` of ``dst`` zeroed.  Rows of ``dst`` from ``dirty`` on must be
+    zero already, and stay untouched; so does ``src``.  Equal, over the
+    rows it leaves, to :func:`compact_rows` by the permutation that puts
+    ``keep`` first.  Returns the rows written."""
+    n_keep = keep.shape[0]
+    torch.index_select(src, 0, keep, out=dst[:n_keep])
+    dst[n_keep:dirty].zero_()  # empty where dirty <= n_keep
+    return max(n_keep, dirty)
+
+
+def compact_live(arr: torch.Tensor, keep: torch.Tensor) -> torch.Tensor:
+    """:func:`gather_live_rows` into a new tensor: the rows ``keep`` of
+    ``arr`` first, zeros after them."""
+    out = torch.empty_like(arr)
+    gather_live_rows(out, arr, keep, arr.shape[0])
     return out
 
 

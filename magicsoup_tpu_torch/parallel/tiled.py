@@ -263,11 +263,11 @@ def take_rows(mesh: Mesh, local: torch.Tensor, src) -> torch.Tensor:
     width = int(np.bincount(owner, minlength=n).max()) if len(need) else 0
     dev = local.device
     if width == 0:
-        return local[_util.to_device_blocking(mine - lo, dev)]
+        return local[_util.to_device(mine - lo, dev)]
     sent = need[owner == r]
     payload = local.new_zeros((width,) + tuple(local.shape[1:]))
     if len(sent):
-        payload[: len(sent)] = local[_util.to_device_blocking(sent - lo, dev)]
+        payload[: len(sent)] = local[_util.to_device(sent - lo, dev)]
     every = mesh.all_gather(payload, 0)  # (n * width, ...)
     # each crossing row's place in its owner's payload
     first = np.searchsorted(owner, np.arange(n))
@@ -276,7 +276,7 @@ def take_rows(mesh: Mesh, local: torch.Tensor, src) -> torch.Tensor:
     pick = np.where(
         here, mine - lo, blk + slot[np.searchsorted(need, np.where(here, need[0], mine))]
     )
-    return torch.cat([local, every])[_util.to_device_blocking(pick, dev)]
+    return torch.cat([local, every])[_util.to_device(pick, dev)]
 
 
 def compact_block(mesh: Mesh, local: torch.Tensor, perm, n_keep: int) -> torch.Tensor:

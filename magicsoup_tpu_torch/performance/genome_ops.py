@@ -71,7 +71,7 @@ def bench(sizes: list[int], s: int, r: int, p: float, pb: float, seed: int,
         recombinations_tokens,
     )
     from magicsoup_tpu_torch.performance import device_name
-    from magicsoup_tpu_torch.util import random_genome, to_device_blocking
+    from magicsoup_tpu_torch.util import random_genome, to_device
 
     dev = torch.device(device)
     name = device_name(dev)
@@ -99,8 +99,8 @@ def bench(sizes: list[int], s: int, r: int, p: float, pb: float, seed: int,
     for n in sizes:
         seqs = [random_genome(s=s, rng=rng) for _ in range(n)]
         tokens_np, lengths_np = encode_genomes(seqs, length_cap=length_capacity(s))
-        tokens = to_device_blocking(tokens_np, dev)
-        lengths = to_device_blocking(lengths_np, dev)
+        tokens = to_device(tokens_np, dev)
+        lengths = to_device(lengths_np, dev)
         pair_rows = list(range(n))
         rng.shuffle(pair_rows)
         pairs = np.asarray(pair_rows[: 2 * (n // 2)]).reshape(-1, 2)

@@ -39,7 +39,7 @@ from magicsoup_tpu_torch.interop import params_from_numpy
 from magicsoup_tpu_torch.ops import backends
 from magicsoup_tpu_torch.ops import cuda_integrate as ci
 from magicsoup_tpu_torch.ops.integrate import CellParams
-from magicsoup_tpu_torch.util import fetch_host, to_device_blocking
+from magicsoup_tpu_torch.util import fetch_host, to_device
 from magicsoup_tpu_torch.performance import (
     HBM_BYTES_PER_S,
     card_line,
@@ -120,7 +120,7 @@ def bench(c, p, s, occupancy, chain, reps, points, device, log=print) -> tuple[l
     every point ran."""
     dev = torch.device(device)
     X_np, d = draw_inputs(c, p, s, occupancy)
-    X = to_device_blocking(X_np, dev)
+    X = to_device(X_np, dev)
     params = params_from_numpy(d, dev)
     name = device_name(dev)
     n_bytes = min_bytes(c, p, s)

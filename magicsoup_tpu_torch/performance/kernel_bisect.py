@@ -46,7 +46,7 @@ from magicsoup_tpu_torch.interop import params_from_numpy
 from magicsoup_tpu_torch.ops import cuda_bisect as cb
 from magicsoup_tpu_torch.ops import cuda_integrate as ci
 from magicsoup_tpu_torch.ops.integrate import CellParams
-from magicsoup_tpu_torch.util import to_device_blocking
+from magicsoup_tpu_torch.util import to_device
 from magicsoup_tpu_torch.performance import (
     HBM_BYTES_PER_S,
     card_line,
@@ -209,7 +209,7 @@ def run_ladder(
     and whether every rung passed."""
     dev = torch.device(device)
     X_np, d = draw_inputs(c, p, s)
-    X = to_device_blocking(X_np, dev)
+    X = to_device(X_np, dev)
     params = params_from_numpy(d, dev)
     table = steps(X, params)
     rows = []

@@ -251,24 +251,20 @@ def fetch_host(t) -> np.ndarray:
     return out
 
 
-def to_device(arr: np.ndarray, device) -> torch.Tensor:
-    """Host numpy -> ``device``, the port's host->device boundary: on a
-    CUDA device through pinned memory without blocking the host; on the
-    CPU a fresh tensor."""
-    t = torch.from_numpy(np.array(arr, copy=True))
+def to_device(arr: np.ndarray, device, dtype: torch.dtype | None = None) -> torch.Tensor:
+    """Host numpy -> ``device`` (as ``dtype``), the port's one
+    host->device boundary: on a CUDA device through pinned memory without
+    blocking the host (a pageable copy would synchronize the stream); on
+    the CPU a fresh tensor.  The array is copied first, so the caller may
+    change it at once."""
+    # order="C": a 0-d array stays 0-d, a strided view becomes contiguous
+    t = torch.from_numpy(np.array(arr, copy=True, order="C"))
+    if dtype is not None:
+        # cast on the host, so what goes up is the pinned tensor itself
+        t = t.to(dtype)
     if torch.device(device).type == "cuda":
         return t.pin_memory().to(device, non_blocking=True)
     return t
-
-
-def to_device_blocking(arr: np.ndarray, device, dtype: torch.dtype | None = None) -> torch.Tensor:
-    """Host numpy -> ``device`` (as ``dtype``) from pageable memory, which
-    blocks the host on a CUDA device; on the CPU it may share ``arr``'s
-    memory.  It keeps the timing of the sites that copy so, until they are
-    measured on :func:`to_device`."""
-    # order="C", not ascontiguousarray: a 0-d array stays 0-d
-    t = torch.from_numpy(np.asarray(arr, order="C"))
-    return t.to(device) if dtype is None else t.to(device=device, dtype=dtype)
 
 
 # Background worker threads (the pipelined stepper's record fetcher and

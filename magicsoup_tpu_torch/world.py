@@ -72,7 +72,7 @@ from magicsoup_tpu_torch.guard.errors import CheckpointError
 from magicsoup_tpu_torch.guard.io import atomic_write_bytes, atomic_write_text
 from magicsoup_tpu_torch.parallel import tiled as _tiled
 from magicsoup_tpu_torch.ops.params import (
-    compact_rows,
+    compact_live,
     next_rung,
     pad_pow2,
     quantize_rows,
@@ -85,7 +85,7 @@ from magicsoup_tpu_torch.util import (
     resolve_device,
     restore_device,
     restored_device,
-    to_device_blocking,
+    to_device,
 )
 
 _MIN_CAPACITY = 64
@@ -128,6 +128,26 @@ def _map_add(molecule_map, xs, ys, values):
     return molecule_map.index_put(
         (mols[:, None], xs[None, :], ys[None, :]), values, accumulate=True
     )
+
+
+def _keep_rows(arr: np.ndarray, keep: np.ndarray) -> np.ndarray:
+    """A new host store: the rows ``keep`` of ``arr`` first, zeros after."""
+    out = np.empty_like(arr)
+    np.take(arr, keep, axis=0, out=out[: len(keep)])
+    out[len(keep) :] = 0
+    return out
+
+
+def _drop_sorted(items: list, drop: np.ndarray) -> list:
+    """``items`` without the entries at the ascending indexes ``drop``,
+    joined from the runs between them."""
+    out, start = [], 0
+    bounds = drop.tolist()
+    for k in bounds:
+        out += items[start:k]
+        start = k + 1
+    out += items[start:]
+    return out
 
 
 def _integrator_inputs(
@@ -314,13 +334,13 @@ class World:
 
         mols = chemistry.molecules
         self.n_molecules = len(mols)
-        self._diff_kernels = to_device_blocking(
+        self._diff_kernels = to_device(
             _diff.diffusion_kernels([d.diffusivity for d in mols]), self.device
         )
-        self._perm_factors = to_device_blocking(
+        self._perm_factors = to_device(
             _diff.permeation_factors([d.permeability for d in mols]), self.device
         )
-        self._degrad_factors = to_device_blocking(
+        self._degrad_factors = to_device(
             _diff.degradation_factors([d.half_life for d in mols]), self.device
         )
 
@@ -456,7 +476,7 @@ class World:
                 f"cell_molecules must have shape {(self.n_cells, self.n_molecules)}"
             )
         new_cm = self._cell_molecules.clone()
-        new_cm[: self.n_cells] = to_device_blocking(value, self.device)
+        new_cm[: self.n_cells] = to_device(value, self.device)
         self._cell_molecules = new_cm
 
     def prefetch_cell_molecule_column(self, mol_idx: int):
@@ -496,7 +516,7 @@ class World:
         if len(cell_idxs) == 0:
             return
         flat = np.asarray(cell_idxs, dtype=np.int64) * self.n_molecules + mol_idx
-        idxs = to_device_blocking(flat, self.device)
+        idxs = to_device(flat, self.device)
         vals = torch.full(
             idxs.shape, np.float32(delta).item(), dtype=torch.float32, device=self.device
         )
@@ -573,15 +593,15 @@ class World:
         self.kinetics.ensure_capacity(n_cells=cap)
 
     def _sync_positions(self):
-        self._positions_dev = to_device_blocking(self._np_positions.astype(np.int64), self.device)
+        self._positions_dev = to_device(self._np_positions.astype(np.int64), self.device)
 
     def _init_molecule_map(self, init: str) -> torch.Tensor:
         shape = (self.n_molecules, self.map_size, self.map_size)
         if init == "zeros":
-            return to_device_blocking(np.zeros(shape, dtype=np.float32), self.device)
+            return to_device(np.zeros(shape, dtype=np.float32), self.device)
         if init == "randn":
             arr = np.abs(self._nprng.standard_normal(shape, dtype=np.float32) + 10.0)
-            return to_device_blocking(arr, self.device)
+            return to_device(arr, self.device)
         raise ValueError(
             f"Didnt recognize mol_map_init={init}. Should be one of: 'zeros', 'randn'."
         )
@@ -726,8 +746,8 @@ class World:
         self._sync_positions()
 
         # new cells pick up half the molecules of their pixel
-        xs = to_device_blocking(free_pos[:, 0].astype(np.int64), self.device)
-        ys = to_device_blocking(free_pos[:, 1].astype(np.int64), self.device)
+        xs = to_device(free_pos[:, 0].astype(np.int64), self.device)
+        ys = to_device(free_pos[:, 1].astype(np.int64), self.device)
         pickup = self._molecule_map[:, xs, ys] * 0.5  # (mols, b)
         self._molecule_map = _map_add(self._molecule_map, xs, ys, -pickup)
         new_cm = self._cell_molecules.clone()
@@ -780,9 +800,9 @@ class World:
         new_cm = self._cell_molecules.clone()
         write_new_rows(
             new_cm[None],
-            to_device_blocking(np.array([n_old], dtype=np.int64), self.device),
-            to_device_blocking(vals[None], self.device),
-            to_device_blocking(np.array([n_new], dtype=np.int64), self.device),
+            to_device(np.array([n_old], dtype=np.int64), self.device),
+            to_device(vals[None], self.device),
+            to_device(np.array([n_new], dtype=np.int64), self.device),
         )
         self._cell_molecules = new_cm
 
@@ -901,8 +921,8 @@ class World:
         self._sync_positions()
 
         # molecules are shared evenly; children inherit parameter rows
-        parents = to_device_blocking(np.asarray(parent_idxs, dtype=np.int64), self.device)
-        children = to_device_blocking(np.asarray(child_idxs, dtype=np.int64), self.device)
+        parents = to_device(np.asarray(parent_idxs, dtype=np.int64), self.device)
+        children = to_device(np.asarray(child_idxs, dtype=np.int64), self.device)
         new_cm = self._cell_molecules.clone()
         half = new_cm[parents] * 0.5
         new_cm[parents] = half
@@ -940,50 +960,51 @@ class World:
         if len(cell_idxs) == 0:
             return
         kill = np.array(sorted(set(cell_idxs)), dtype=np.int64)
+        n, k = self.n_cells, len(kill)
 
         pos = self._np_positions[kill]
         self._np_cell_map[pos[:, 0], pos[:, 1]] = False
 
-        # stable compaction permutation over the full capacity
+        # the survivors in order: the one index every store compacts by
         keep_mask = np.ones(self._capacity, dtype=bool)
         keep_mask[kill] = False
-        keep_mask[self.n_cells :] = False
-        perm = np.concatenate([np.nonzero(keep_mask)[0], np.nonzero(~keep_mask)[0]])
-        n_keep = int(keep_mask.sum())
+        keep_mask[n:] = False
+        keep = np.flatnonzero(keep_mask)
+        n_keep = len(keep)
 
-        # killed cells dump their contents onto their pixel
-        kill_t = to_device_blocking(kill, self.device)
-        spill = self._cell_molecules[kill_t]  # (b, mols)
-        self._molecule_map = _map_add(
-            self._molecule_map,
-            to_device_blocking(pos[:, 0].astype(np.int64), self.device),
-            to_device_blocking(pos[:, 1].astype(np.int64), self.device),
-            spill.T,
+        # one upload: the keep index, the killed rows and their pixels
+        keep_t, kill_t, xs, ys = torch.split(
+            to_device(np.concatenate([keep, kill, pos[:, 0], pos[:, 1]]), self.device),
+            [n_keep, k, k, k],
         )
-        perm_t = to_device_blocking(perm.astype(np.int64), self.device)
-        self._cell_molecules = compact_rows(self._cell_molecules, perm_t, n_keep)
-        self.kinetics.permute_cells(perm, n_keep)
+        # killed cells dump their contents onto their pixel
+        spill = self._cell_molecules[kill_t]  # (b, mols)
+        self._molecule_map = _map_add(self._molecule_map, xs, ys, spill.T)
+        self._cell_molecules = compact_live(self._cell_molecules, keep_t)
+        self._positions_dev = compact_live(self._positions_dev, keep_t)
+        # the same compaction as a permutation of the whole capacity, for
+        # the stores that take one: a mesh's blocks, the token store
+        perm = None
+        if self._mesh is not None or self._genome_store is not None:
+            perm = np.concatenate([keep, np.flatnonzero(~keep_mask)])
+        if self._mesh is None:
+            rows, capacity_rows = self.kinetics.compact_cells(keep_t, n)
+        else:
+            # a rank's block takes rows from other ranks' blocks
+            self.kinetics.permute_cells(perm, n_keep)
+            rows = capacity_rows = len(self.kinetics.params) * self._capacity
+        _telemetry.count("compaction.rows", rows)
+        _telemetry.count("compaction.capacity_rows", capacity_rows)
 
-        self._np_positions = self._np_positions[perm]
-        self._np_positions[n_keep:] = 0
-        self._np_lifetimes = self._np_lifetimes[perm]
-        self._np_lifetimes[n_keep:] = 0
-        self._np_divisions = self._np_divisions[perm]
-        self._np_divisions[n_keep:] = 0
-        self._sync_positions()
-
-        kill_set = set(kill.tolist())
+        self._np_positions = _keep_rows(self._np_positions, keep)
+        self._np_lifetimes = _keep_rows(self._np_lifetimes, keep)
+        self._np_divisions = _keep_rows(self._np_divisions, keep)
         if self._genome_store is not None:
-            # the compaction permutation of every other cell tensor
             self._genome_store.permute(perm, n_keep)
         else:
-            self._genomes_list = [
-                g for i, g in enumerate(self._genomes_list) if i not in kill_set
-            ]
-        self.cell_labels = [
-            lab for i, lab in enumerate(self.cell_labels) if i not in kill_set
-        ]
-        self.n_cells -= len(kill)
+            self._genomes_list = _drop_sorted(self._genomes_list, kill)
+        self.cell_labels = _drop_sorted(self.cell_labels, kill)
+        self.n_cells -= k
 
     def move_cells(self, cell_idxs: list[int] | None = None):
         """
@@ -1472,7 +1493,7 @@ class World:
             self.telemetry = TelemetryRecorder()
         self.device = restored_device(state["device"], "World")
         for name in self._PICKLED_TENSORS:
-            setattr(self, name, to_device_blocking(state[name], self.device))
+            setattr(self, name, to_device(state[name], self.device))
         self._col_prefetch = None
         self._sync_positions()
 
@@ -1552,7 +1573,7 @@ class World:
 
         cm = np.load(statedir / "cell_molecules.npy")
         self._np_cell_map = np.load(statedir / "cell_map.npy")
-        self._molecule_map = to_device_blocking(np.load(statedir / "molecule_map.npy"), self.device)
+        self._molecule_map = to_device(np.load(statedir / "molecule_map.npy"), self.device)
         lifetimes = np.load(statedir / "cell_lifetimes.npy")
         positions = np.load(statedir / "cell_positions.npy")
         divisions = np.load(statedir / "cell_divisions.npy")
@@ -1584,7 +1605,7 @@ class World:
         self._sync_positions()
         full_cm = np.zeros((self._capacity, self.n_molecules), dtype=np.float32)
         full_cm[:n] = cm
-        self._cell_molecules = to_device_blocking(full_cm, self.device)
+        self._cell_molecules = to_device(full_cm, self.device)
 
         if not ignore_cell_params:
             self.update_cells(genome_idx_pairs=[(g, i) for i, g in enumerate(genomes)])

@@ -1,9 +1,11 @@
 """
 The port's seams, checked on its source (stdlib AST, no torch tensor):
 
-- host->device copies go through ``util.to_device`` or
-  ``util.to_device_blocking``: no other module of ``magicsoup_tpu_torch/``
-  spells ``from_numpy(...).to(...)`` or ``.pin_memory().to(...)``;
+- host->device copies go through ``util.to_device``, the one seam
+  (pinned, never blocking the host): no other module of
+  ``magicsoup_tpu_torch/`` spells ``from_numpy(...).to(...)`` or
+  ``.pin_memory().to(...)``, and no module calls or defines a second,
+  blocking upload (``to_device_blocking``);
 - each kernel's wrapper under ``ops/`` owns its launch plan and its
   counters: outside ``ops/`` and ``performance/`` (the microbenchmarks,
   which check their own launch counts) no module calls ``launch_plan``,
@@ -49,6 +51,17 @@ def _copy_to(node: ast.AST, inner: str) -> bool:
     )
 
 
+def _blocking_upload(node: ast.AST) -> bool:
+    """A call, definition, import or attribute named ``to_device_blocking``."""
+    if isinstance(node, ast.Call):
+        return _leaf(node.func) == "to_device_blocking"
+    if isinstance(node, ast.FunctionDef):
+        return node.name == "to_device_blocking"
+    if isinstance(node, ast.ImportFrom):
+        return any(alias.name == "to_device_blocking" for alias in node.names)
+    return isinstance(node, ast.Attribute) and node.attr == "to_device_blocking"
+
+
 def _plan_call(node: ast.AST) -> bool:
     return isinstance(node, ast.Call) and _leaf(node.func) in (
         "launch_plan", "route_bytes", "smem_limit"
@@ -67,6 +80,7 @@ def _launch_count_read(node: ast.AST) -> bool:
 SEAMS = {
     "from_numpy-to": (lambda n: _copy_to(n, "from_numpy"), ("util.py",)),
     "pin_memory-to": (lambda n: _copy_to(n, "pin_memory"), ("util.py",)),
+    "blocking-upload": (_blocking_upload, ()),
     "launch-plan": (_plan_call, ("ops/", "performance/")),
     "launch-count": (_launch_count_read, ("ops/", "performance/")),
 }
